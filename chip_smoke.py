@@ -8,20 +8,35 @@ Phase 0  prints the card (name and power limit from nvidia-smi), the torch and
          ``lidar_visual_odometry_tpu_torch/csrc`` (one nvcc per source, in
          parallel).
 Phase 1  holds each kernel against its plain PyTorch version on the card, at
-         the shapes the lidar odometry path gives it, and times kernel, plain
-         version and (where one exists) the one PyTorch call that computes the
-         same function.
-Phase 2  drives the main path at full width: ``OdometryPipeline(SystemConfig(),
+         the shapes the lidar odometry path (K1-K3) and the mapping path (the
+         flat K1, K4, K5) give it, and times kernel, plain version and (where
+         one exists) the one PyTorch call that computes the same function. The
+         k-NN kernels search a world map built from the corridor's first nine
+         frames with the frame-9 features as queries, so the windowed
+         kernel's skip share is the path's own.
+Phase 2  drives the odometry path at full width: ``OdometryPipeline(SystemConfig(),
          device="cuda").run_chunked(scans, chunk=8, ingest="polar2")`` on the
          48-frame synthetic HDL-64 corridor (64 rings x 2048 azimuth bins), one
-         warm run and one timed run; it checks that every kernel was launched in
-         the timed run and that the trajectory's ATE is within 0.01 m of the JAX
-         package's ATE on the same sequence (``tools/jax_reference_corridor.json``,
-         written by ``tools/jax_reference_ate.py``).
+         warm run and one timed run; it checks that every kernel of the path was
+         launched in the timed run and that the trajectory's ATE is within
+         0.01 m of the JAX package's ATE on the same sequence
+         (``tools/jax_reference_corridor.json``, from ``tools/jax_reference_ate.py``).
+Phase 3  drives the fused SLAM path at full width: ``FullPipeline(SystemConfig(),
+         device="cuda").run_chunked(scans, chunk=8, map_skip=1,
+         ingest="polar2")`` on the same 48 frames, one warm run and one timed
+         run; it checks that the timed run launched every kernel of the path,
+         that the mapped ATE is within 0.01 m of the JAX package's on the CPU
+         (``tools/jax_reference_slam.json``, from ``tools/jax_reference_slam.py``)
+         and that its odometry positions equal phase 2's.
+Phase 3b runs the first 17 frames with ``MappingConfig(windowed_nn=False)``
+         (the dense search, kernel K5) and checks that its mapped positions
+         match phase 3's within 1e-4 m.
 
-Prints one JSON line with every kernel's numbers, the nvidia-smi line, and as
-its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
-result line, when there is no CUDA device or any phase fails.
+Prints one JSON line with every kernel's numbers (launches counted on the
+path that runs the kernel: phase 2 for K1-K3, phase 3 for the flat K1 and K4,
+phase 3b for K5), the nvidia-smi line, and as its last line
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result line,
+when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
@@ -40,7 +55,14 @@ import numpy as np
 # the port's (plus ATE_MARGIN), its positions are compared for information.
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tools", "jax_reference_corridor.json")
+# The JAX package's fused SLAM on the same sequence, run on the CPU by
+# tools/jax_reference_slam.py: its mapped ATE gates the port's.
+SLAM_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tools", "jax_reference_slam.json")
 ATE_MARGIN = 0.01
+DENSE_FRAMES = 17     # phase 3b
+DENSE_TOL_M = 1e-4
+MAP_FRAMES = 9        # phase 1: frames merged into the k-NN kernels' world map
 
 N_FRAMES = 49
 SEED = 0
@@ -87,12 +109,14 @@ def phase1_segsum(rng, dev):
 
     R, C, W, S = 64, 4, 2048, 513          # less-flat voxel filter, per frame
     # as the voxel filter produces them: sorted runs of a few points per
-    # voxel, then every masked point of the ring in the overflow bucket S-1
+    # voxel, then every masked point of the ring in the overflow bucket S-1,
+    # whose values are zero
     seg = np.full((R, W), S - 1, np.int32)
+    vals = rng.normal(scale=30.0, size=(R, C, W)).astype(np.float32)
     for r in range(R):
         n_valid = int(rng.integers(800, 1800))
         seg[r, :n_valid] = np.sort(rng.integers(0, S - 1, n_valid))
-    vals = rng.normal(scale=30.0, size=(R, C, W)).astype(np.float32)
+        vals[r, :, n_valid:] = 0.0
     seg_t = torch.from_numpy(seg).to(dev)
     vals_t = torch.from_numpy(vals).to(dev)
     out = segsum.segment_sum_batched(seg_t, vals_t, n_segments=S)
@@ -257,6 +281,198 @@ def phase1_gn(rng, dev):
     )
 
 
+def phase1_flat_segsum(rng, dev):
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import segsum
+
+    C, S = 4, 4097                         # mapping voxel filters, max_out 4096
+    ms = plain_ms = library_ms = 0.0
+    err = 0.0
+    n_bytes = n_ops = 0
+    shapes = []
+    # (W, valid points, share of points that start a new voxel): less-flat
+    # at 0.8 m, less-sharp at 0.4 m
+    for W, n_valid, p_new in ((32768, 16000, 0.15), (7680, 5000, 0.6)):
+        # as the voxel filter produces them: non-decreasing run ids, the
+        # masked points (zero values) in the overflow bucket S - 1
+        seg = np.full(W, S - 1, np.int32)
+        seg[:n_valid] = np.minimum(np.cumsum(rng.uniform(size=n_valid) < p_new), S - 1)
+        vals = rng.normal(scale=30.0, size=(C, W)).astype(np.float32)
+        vals[:, n_valid:] = 0.0
+        seg_t = torch.from_numpy(seg).to(dev)
+        vals_t = torch.from_numpy(vals).to(dev)
+        out = segsum.segment_sum(seg_t, vals_t, n_segments=S)
+        ref = segsum.segment_sum_plain(seg_t, vals_t, n_segments=S)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        # float32 sums of the same values in another order (rows, then the
+        # row partials; the plain version adds with atomics): rtol 1e-5, atol 1e-3
+        if not torch.allclose(out, ref, rtol=1e-5, atol=1e-3):
+            raise AssertionError(f"segment_sum disagrees with its plain version at W={W}: {e}")
+        err = max(err, e)
+        ids = seg_t.to(torch.int64)
+        vals_rows = vals_t.T.contiguous()
+
+        def library():
+            return torch.zeros((S, C), device=dev).index_add_(0, ids, vals_rows)
+
+        if not torch.allclose(library().T, ref, rtol=1e-5, atol=1e-3):
+            raise AssertionError("index_add_ yardstick disagrees with the plain version")
+        ms += _time_ms(lambda: segsum.segment_sum(seg_t, vals_t, n_segments=S), 200)
+        plain_ms += _time_ms(lambda: segsum.segment_sum_plain(seg_t, vals_t, n_segments=S), 200)
+        library_ms += _time_ms(library, 200)
+        n_bytes += 4 * (W + C * W + C * S)
+        n_ops += C * W
+        shapes.append(f"W={W}")
+    bound, by = _bound_ms(n_bytes, n_ops)
+    return dict(
+        name="segment_sum", route="cuda",
+        source="lidar_visual_odometry_tpu_torch/csrc/segsum.cu",
+        replaces="lidar_visual_odometry_tpu/ops/pallas_segsum.py:72",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=library_ms,
+        shapes="seg (W,) i32, vals (4, W), S=4097, both mapping filters: " + ", ".join(shapes),
+        tolerance="rtol 1e-5, atol 1e-3",
+    )
+
+
+def _world_map(scans, seq, dev):
+    """The corridor's first MAP_FRAMES frames merged into the bounded voxel
+    maps at their true poses, and the next frame's downsampled features in the
+    world frame, as the mapping path searches them."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.models import device_mapping as dm
+    from lidar_visual_odometry_tpu_torch.models import scan_registration as sr
+    from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
+    from lidar_visual_odometry_tpu_torch.ops import se3
+    from lidar_visual_odometry_tpu_torch.ops.voxel_map import voxel_merge
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    cfg = SystemConfig()
+    lcfg, mcfg = cfg.lidar, cfg.mapping
+    imgs = pc.polar_image_to_tensor(pc.pack_polar_chunk(
+        scans[:MAP_FRAMES + 1], n_scans=lcfg.n_scans, width=lcfg.azimuth_bins,
+        min_range=lcfg.min_range, max_range=lcfg.max_range, channels=1), dev)
+    state = dm.init_state(mcfg, dev)
+    maps = {"corner": (state.corner, state.corner_mask), "surf": (state.surf, state.surf_mask)}
+    classes = (("corner", "less_sharp", mcfg.corner_leaf, mcfg.corner_slot, mcfg.map_corner_cap),
+               ("surf", "less_flat", mcfg.surf_leaf, mcfg.surf_slot, mcfg.map_surf_cap))
+    queries = {}
+    for k in range(MAP_FRAMES + 1):
+        yaw = seq.yaw_rate * k
+        pose = se3.Pose(
+            torch.tensor([np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)], dtype=torch.float32,
+                         device=dev),
+            torch.tensor(seq.pose(k)[1] - seq.pose(0)[1], dtype=torch.float32, device=dev))
+        feats = sr.register_polar_impl(imgs[k], lcfg).features
+        for name, field, leaf, slot, cap in classes:
+            fc = getattr(feats, field)
+            ds = pc.voxel_downsample(fc.xyz, fc.mask, leaf=leaf, max_out=slot)
+            world = se3.se3_apply(pose, ds.xyz)
+            if k == MAP_FRAMES:
+                queries[name] = (world, pose)
+            else:
+                merged = voxel_merge(*maps[name], world, ds.mask, pose.t, leaf=leaf, cap=cap,
+                                     drop_radius=mcfg.map_drop_radius)
+                maps[name] = (merged.xyz, merged.mask)
+    return maps, queries, mcfg
+
+
+def _knn_inputs(maps, queries, mcfg, name):
+    """K4's inputs as ``lidar_mapping.solve_map_pose`` builds them: the map
+    baked and sorted by cell key, the queries sorted by cell key."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import topk
+
+    q, pose = queries[name]
+    origin = pose.t[:2] - (mcfg.nn_grid_w // 2) * mcfg.nn_cell
+    ckw = dict(cell=mcfg.nn_cell, grid_w=mcfg.nn_grid_w)
+    c_sorted, c_keys = topk.sort_by_cell(*maps[name], origin, **ckw)
+    keys = topk.cell_keys(q, origin, **ckw)
+    order = torch.sort(keys, stable=True).indices
+    return q[order].contiguous(), keys[order].contiguous(), c_sorted, c_keys
+
+
+def phase1_topk_windowed(maps, queries, mcfg):
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import topk
+
+    ms = plain_ms = 0.0
+    n_bytes = n_ops = 0
+    pairs = total = 0
+    shapes = []
+    for name in ("corner", "surf"):
+        q, q_keys, c_sorted, c_keys = _knn_inputs(maps, queries, mcfg, name)
+        kw = dict(k=mcfg.knn, q_tile=mcfg.nn_q_tile, c_tile=512, grid_w=mcfg.nn_grid_w)
+        d, i = topk.block_topk_windowed(q, q_keys, c_sorted, c_keys, **kw)
+        dp, ip = topk.block_topk_windowed_plain(q, q_keys, c_sorted, c_keys, **kw)
+        torch.cuda.synchronize()
+        # the same chunks, the same float32 expression without contraction and
+        # the same tie rule: identical distances and indices
+        if not (torch.equal(d, dp) and torch.equal(i, ip)):
+            raise AssertionError(f"block_topk_windowed disagrees with its plain version ({name}): "
+                                 f"{float((d - dp).abs().max())}")
+        ms += _time_ms(lambda: topk.block_topk_windowed(q, q_keys, c_sorted, c_keys, **kw), 100)
+        plain_ms += _time_ms(
+            lambda: topk.block_topk_windowed_plain(q, q_keys, c_sorted, c_keys, **kw), 5)
+        hits = topk.chunk_hits(q_keys, c_keys, q_tile=kw["q_tile"], c_tile=512,
+                               grid_w=mcfg.nn_grid_w)
+        hit_pairs = int(hits.sum()) * kw["q_tile"] * 512
+        pairs += hit_pairs
+        total += q.shape[0] * c_sorted.shape[0]
+        Q, C = q.shape[0], c_sorted.shape[0]
+        n_bytes += 4 * (4 * Q + 4 * C + 2 * mcfg.knn * Q)
+        n_ops += 8 * hit_pairs        # 3 sub, 3 mul, 2 add per considered pair
+        shapes.append(f"Q={Q} x C={C} ({name}, {float(hits.float().mean()):.3f} of "
+                      f"(tile, chunk) pairs read)")
+    bound, by = _bound_ms(n_bytes, n_ops)
+    return dict(
+        name="block_topk_windowed", route="cuda",
+        source="lidar_visual_odometry_tpu_torch/csrc/topk.cu",
+        replaces="lidar_visual_odometry_tpu/ops/pallas_nn.py:488",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, skip_share=1.0 - pairs / total,
+        shapes="one mapping round, k 5, q_tile 256, c_tile 512: " + ", ".join(shapes),
+        tolerance="exact (atol 0), identical indices",
+    )
+
+
+def phase1_topk_dense(maps, queries, mcfg, dev):
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import nn, topk
+
+    q = queries["surf"][0].contiguous()
+    baked = nn.bake_mask(*maps["surf"]).contiguous()
+    Q, C, k = q.shape[0], baked.shape[0], mcfg.knn
+    d, i = topk.block_topk(q, baked, k=k)
+    dp, ip = topk.block_topk_plain(q, baked, k=k)
+    torch.cuda.synchronize()
+    # as block_topk_windowed: identical distances and indices
+    if not (torch.equal(d, dp) and torch.equal(i, ip)):
+        raise AssertionError(f"block_topk disagrees with its plain version: "
+                             f"{float((d - dp).abs().max())}")
+    ms = _time_ms(lambda: topk.block_topk(q, baked, k=k), 50)
+    plain_ms = _time_ms(lambda: topk.block_topk_plain(q, baked, k=k), 3)
+    # for information only: torch.cdist + torch.topk, two calls (cdist's
+    # matrix-product distances round otherwise, and topk's ties are unordered)
+    two_calls_ms = _time_ms(lambda: torch.topk(torch.cdist(q, baked), k, largest=False), 20)
+    bound, by = _bound_ms(4 * (3 * Q + 3 * C + 2 * k * Q), 8 * Q * C)
+    return dict(
+        name="block_topk", route="cuda",
+        source="lidar_visual_odometry_tpu_torch/csrc/topk.cu",
+        replaces="lidar_visual_odometry_tpu/ops/pallas_nn.py:590",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, cdist_topk_two_calls_ms=two_calls_ms,
+        shapes=f"Q={Q} x C={C} (surf), k {k}",
+        tolerance="exact (atol 0), identical indices",
+    )
+
+
 def main() -> int:
     import torch
 
@@ -267,10 +483,11 @@ def main() -> int:
     from lidar_visual_odometry_tpu_torch.data import synthetic
     from lidar_visual_odometry_tpu_torch.eval import metrics
     from lidar_visual_odometry_tpu_torch.kernels import _build
-    from lidar_visual_odometry_tpu_torch.models.pipeline import OdometryPipeline
-    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+    from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
+    from lidar_visual_odometry_tpu_torch.utils.config import MappingConfig, SystemConfig
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # ---- phase 0: the card, the toolchain, the build ----
     smi = _smi()
@@ -282,18 +499,6 @@ def main() -> int:
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {per_source})", flush=True)
 
-    # ---- phase 1: each kernel against its plain version ----
-    results = []
-    rng = np.random.default_rng(SEED)
-    for fn in (phase1_segsum, phase1_assoc, phase1_gn):
-        r = fn(rng, dev)
-        results.append(r)
-        print(f"phase 1: {r['name']} [{r['shapes']}] max_abs_err {r['max_abs_err']:.3g} "
-              f"({r['tolerance']}); kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
-              f"library_ms {r['library_ms']}, bound_ms {r['bound_ms']:.5f} "
-              f"({r['bound_by']})", flush=True)
-
-    # ---- phase 2: the main path at full width ----
     seq = synthetic.SyntheticSequence(
         n_frames=N_FRAMES, width=1800, speed=1.0, yaw_rate=0.004, noise=0.01
     )
@@ -304,9 +509,29 @@ def main() -> int:
     with ThreadPoolExecutor(workers) as ex:
         scans = list(ex.map(seq.scan, range(N_FRAMES)))
     gt = np.stack([seq.pose(k)[1] for k in range(N_FRAMES)])
-    print(f"phase 2: rendered {N_FRAMES} scans in {time.perf_counter() - t0:.1f} s "
+    print(f"rendered {N_FRAMES} scans in {time.perf_counter() - t0:.1f} s "
           f"({workers} threads)", flush=True)
 
+    # ---- phase 1: each kernel against its plain version ----
+    results = []
+    rng = np.random.default_rng(SEED)
+    maps, queries, mcfg = _world_map(scans, seq, dev)
+    for fn in (lambda: phase1_segsum(rng, dev), lambda: phase1_assoc(rng, dev),
+               lambda: phase1_gn(rng, dev), lambda: phase1_flat_segsum(rng, dev),
+               lambda: phase1_topk_windowed(maps, queries, mcfg),
+               lambda: phase1_topk_dense(maps, queries, mcfg, dev)):
+        r = fn()
+        results.append(r)
+        extra = "".join(f", {key} {r[key]:.4f}" for key in ("skip_share", "cdist_topk_two_calls_ms")
+                        if key in r)
+        print(f"phase 1: {r['name']} [{r['shapes']}] max_abs_err {r['max_abs_err']:.3g} "
+              f"({r['tolerance']}); kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
+              f"library_ms {r['library_ms']}, bound_ms {r['bound_ms']:.5f} "
+              f"({r['bound_by']}){extra}", flush=True)
+    del maps, queries
+    print(f"phases 0-1 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 2: the odometry path at full width ----
     with open(REFERENCE) as f:
         reference = json.load(f)
     jax_ate = reference["ate_m"]
@@ -330,13 +555,70 @@ def main() -> int:
           f"{peak / 2**20:.1f} MiB, launches {counts}", flush=True)
     if res.positions.shape != (N_FRAMES, 3) or not np.isfinite(res.positions).all():
         raise AssertionError(f"bad trajectory: shape {res.positions.shape}")
-    if min(counts.values()) == 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {counts}")
+    odometry_path = ("segment_sum_batched", "associate_kernel", "gn_inner_loop")
+    if min(counts[name] for name in odometry_path) == 0:
+        raise AssertionError(f"a kernel of the odometry path was never launched: {counts}")
     if not ate <= jax_ate + ATE_MARGIN:
         raise AssertionError(f"ATE {ate} m exceeds the JAX reference {jax_ate} + {ATE_MARGIN}")
-    for r in results:
-        r["launches"] = counts[r["name"]]
+    launches = {name: counts[name] for name in odometry_path}
 
+    # ---- phase 3: the fused SLAM path at full width ----
+    with open(SLAM_REFERENCE) as f:
+        slam_ref = json.load(f)
+    jax_map_ate = slam_ref["mapped_ate_m"]
+    FullPipeline(cfg, device="cuda").run_chunked(scans, chunk=8, map_skip=1, ingest="polar2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    odo, mapped = FullPipeline(cfg, device="cuda").run_chunked(
+        scans, chunk=8, map_skip=1, ingest="polar2")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = sum(mapped.per_frame_s[1:])
+    map_ate = metrics.ate_rmse(mapped.positions, gt)
+    odo_ate = metrics.ate_rmse(odo.positions, gt)
+    peak = torch.cuda.max_memory_allocated()
+    rounds = counts["block_topk_windowed"] / 2 / frames
+    dev_jax = float(np.abs(mapped.positions - np.asarray(slam_ref["mapped_positions"])).max())
+    print(f"phase 3: {frames} frames, {frames / wall:.2f} frames/s, "
+          f"{1e3 * wall / frames:.3f} ms/frame, mapped ATE {map_ate:.5f} m (JAX CPU "
+          f"reference {jax_map_ate:.5f} m + {ATE_MARGIN}), odometry ATE {odo_ate:.5f} m, "
+          f"largest mapped-position difference from the JAX trajectory {dev_jax:.5f} m, "
+          f"{rounds:.2f} mapping rounds/frame, peak device memory {peak / 2**20:.1f} MiB, "
+          f"launches {counts}", flush=True)
+    if mapped.positions.shape != (N_FRAMES, 3) or not np.isfinite(mapped.positions).all():
+        raise AssertionError(f"bad mapped trajectory: shape {mapped.positions.shape}")
+    slam_path = odometry_path + ("segment_sum", "block_topk_windowed")
+    if min(counts[name] for name in slam_path) == 0:
+        raise AssertionError(f"a kernel of the SLAM path was never launched: {counts}")
+    if not map_ate <= jax_map_ate + ATE_MARGIN:
+        raise AssertionError(
+            f"mapped ATE {map_ate} m exceeds the JAX reference {jax_map_ate} + {ATE_MARGIN}")
+    if not np.array_equal(odo.positions, res.positions):
+        raise AssertionError("the SLAM run's odometry positions differ from phase 2's: "
+                             f"{float(np.abs(odo.positions - res.positions).max())} m")
+    launches.update({name: counts[name] for name in ("segment_sum", "block_topk_windowed")})
+
+    # ---- phase 3b: the dense search (K5) on the first frames ----
+    cfg_dense = SystemConfig(mapping=MappingConfig(windowed_nn=False))
+    kernels.reset_launch_counts()
+    _, mapped_dense = FullPipeline(cfg_dense, device="cuda").run_chunked(
+        scans[:DENSE_FRAMES], chunk=8, map_skip=1, ingest="polar2")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    diff = float(np.abs(mapped_dense.positions - mapped.positions[:DENSE_FRAMES]).max())
+    print(f"phase 3b: {DENSE_FRAMES} frames with windowed_nn=False, largest mapped-position "
+          f"difference from phase 3 {diff:.3g} m (tolerance {DENSE_TOL_M}), launches {counts}",
+          flush=True)
+    if counts["block_topk"] == 0 or counts["block_topk_windowed"] != 0:
+        raise AssertionError(f"the dense search did not run kernel K5 alone: {counts}")
+    if not diff <= DENSE_TOL_M:
+        raise AssertionError(f"dense and windowed mapping disagree by {diff} m")
+    launches["block_topk"] = counts["block_topk"]
+    print(f"phases 0-3b took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    for r in results:
+        r["launches"] = launches[r["name"]]
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

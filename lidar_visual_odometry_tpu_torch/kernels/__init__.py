@@ -2,31 +2,38 @@
 
 One module per TPU kernel it replaces:
 
-* ``segsum`` — ``ops/pallas_segsum.py`` ``segment_sum_batched`` (K1)
+* ``segsum`` — ``ops/pallas_segsum.py`` ``segment_sum_batched`` and its flat
+  ``segment_sum`` (K1)
 * ``nn``     — ``ops/pallas_nn.py`` ``associate_kernel`` (K2)
 * ``gn``     — ``ops/pallas_gn.py`` ``gn_inner_loop`` (K3)
+* ``topk``   — ``ops/pallas_nn.py`` ``block_topk_windowed`` (K4) and
+  ``block_topk`` (K5)
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version, a CUDA tensor launches the kernel (built from
-``csrc/`` on first use) or raises. Each counts its kernel launches.
+``csrc/`` on first use) or raises. Each wrapper counts its kernel launches under its own name.
 """
 
 from __future__ import annotations
 
-from . import gn, nn, segsum
+from . import gn, nn, segsum, topk
 
-_MODULES = {
-    "segment_sum_batched": segsum,
-    "associate_kernel": nn,
-    "gn_inner_loop": gn,
+# wrapper name → (module, attribute that counts its launches)
+_COUNTERS = {
+    "segment_sum_batched": (segsum, "launches"),
+    "segment_sum": (segsum, "flat_launches"),
+    "associate_kernel": (nn, "launches"),
+    "gn_inner_loop": (gn, "launches"),
+    "block_topk_windowed": (topk, "windowed_launches"),
+    "block_topk": (topk, "launches"),
 }
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last ``reset_launch_counts``."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -37,6 +37,16 @@ class PlaneCorr(NamedTuple):
     mask: torch.Tensor
 
 
+class NormPlaneCorr(NamedTuple):
+    """Surf point ↔ fitted plane (unit normal n, offset d): r = n·y + d
+    (≡ LidarPlaneNormFactor, ``lidarFactor.hpp:106-138``)."""
+
+    p: torch.Tensor     # (N, 3)
+    n: torch.Tensor     # (N, 3) unit normals
+    d: torch.Tensor     # (N,)
+    mask: torch.Tensor
+
+
 def _transform_deskewed(pose: se3.Pose, p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """y = slerp(I, q, s)·p + s·t  (TransformToStart, laserOdometry.cpp:154-172)."""
     ps = se3.pose_interpolate(pose, s)
@@ -68,4 +78,13 @@ def plane_residuals(pose: se3.Pose, c: PlaneCorr) -> tuple[torch.Tensor, torch.T
     r = torch.sum((y - c.j) * n, dim=-1, keepdim=True)
     Rp = y - c.s[..., None] * pose.t
     J = torch.cat([n, se3._cross(Rp, n)], dim=-1) * c.s[..., None]
+    return r, J[..., None, :]
+
+
+def norm_plane_residuals(pose: se3.Pose, c: NormPlaneCorr) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fitted-plane residual r = n·(R p + t) + d (N, 1) and J (N, 1, 6), the
+    scan-to-map form."""
+    y = se3.se3_apply(pose, c.p)
+    r = torch.sum(y * c.n, dim=-1, keepdim=True) + c.d[..., None]
+    J = torch.cat([c.n, se3._cross(y - pose.t, c.n)], dim=-1)
     return r, J[..., None, :]

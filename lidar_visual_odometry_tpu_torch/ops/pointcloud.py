@@ -11,6 +11,7 @@ Clouds are fixed-capacity tensors with validity masks, as in the reference:
 Multi-key stable sorts of the reference (``lax.sort`` with ``num_keys``) become
 one stable ``torch.sort`` of an exact int64 key that packs the keys, followed by
 gathers of the carried operands; ties keep input order, as ``is_stable=True``.
+Keys wider than 63 bits sort in two stable passes, low keys first.
 
 The host-side polar packer (``pack_polar_scan``, ``pack_polar_chunk``) is
 numpy; the device decode (``polar_to_compact``) lands directly on the compacted
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels.segsum import segment_sum_batched
+from ..kernels.segsum import segment_sum, segment_sum_batched
 
 
 class PointBatch(NamedTuple):
@@ -189,6 +190,75 @@ def voxel_downsample_batched(
     out_mask = cnts > 0
     out_xyz = sum_xyz / torch.clamp(cnts[..., None], min=1.0)
     return PointBatch(out_xyz, out_mask)
+
+
+def voxel_hash(q: torch.Tensor) -> torch.Tensor:
+    """The reference's spatial hash of (..., 3) int32 voxel coordinates:
+    ``(qx·73856093 ^ qy·19349663 ^ qz·83492791)`` in uint32, kept to its low
+    31 bits, as int64."""
+    q = q.to(torch.int64)
+    m32 = 0xFFFFFFFF
+    h = ((q[..., 0] * 73856093) & m32) ^ ((q[..., 1] * 19349663) & m32) \
+        ^ ((q[..., 2] * 83492791) & m32)
+    return h & 0x7FFFFFFF
+
+
+def stable_order(*keys: torch.Tensor) -> torch.Tensor:
+    """Permutation of a stable lexicographic sort by ``keys`` (most significant
+    first), each a non-negative int64 key below 2^63: one stable pass per key,
+    least significant first."""
+    order = None
+    for key in reversed(keys):
+        k = key if order is None else key[order]
+        step = torch.sort(k, stable=True).indices
+        order = step if order is None else order[step]
+    return order
+
+
+def voxel_downsample(
+    xyz: torch.Tensor,    # (N, 3)
+    mask: torch.Tensor,   # (N,)
+    *,
+    leaf: float,
+    max_out: int,
+    origin: float | None = None,
+) -> PointBatch:
+    """Flat voxel-grid filter (≡ pcl::VoxelGrid): mean of the points per
+    occupied voxel, at most ``max_out`` voxels. Returns ((max_out, 3),
+    (max_out,)).
+
+    Points sort by (hash, kxy = qx·2048 + qy, qz), masked points last; runs of
+    equal voxel are numbered and summed by kernel K1's flat ``segment_sum``.
+    When more than ``max_out`` voxels are occupied the extras fall in the
+    overflow bucket, and the hash order makes that an unbiased spatial
+    subsample. With masked points sorting last the keys take 65 bits, so the
+    stable sort runs in two passes: (kxy, qz), then the hash. Coverage is
+    ±1024·leaf around ``origin``, clamped beyond."""
+    if origin is None:
+        origin = -1024.0 * leaf
+    q = torch.clamp(torch.floor((xyz - origin) * _recip32(leaf)).to(torch.int32), 0, 2047)
+    q64 = q.to(torch.int64)
+    kxy = torch.where(mask, q64[:, 0] * 2048 + q64[:, 1], torch.full_like(q64[:, 0], 1 << 22))
+    low = (kxy << 11) | q64[:, 2]
+    h = torch.where(mask, voxel_hash(q), torch.full_like(kxy, 2**31 - 1))
+    order = stable_order(h, low)
+    low_s = low[order]
+    xyz_s = xyz[order]
+    mask_s = mask[order]
+
+    is_start = torch.ones_like(mask_s)
+    is_start[1:] = low_s[1:] != low_s[:-1]
+    is_start = is_start & mask_s
+    run_id = torch.cumsum(is_start.to(torch.int32), 0, dtype=torch.int32) - 1
+    run_id = torch.where(mask_s, torch.clamp(run_id, max=max_out),
+                         torch.full_like(run_id, max_out))
+
+    vals = torch.cat([torch.where(mask_s[:, None], xyz_s, torch.zeros_like(xyz_s)).T,
+                      mask_s.to(torch.float32)[None]], dim=0).contiguous()   # (4, N)
+    acc = segment_sum(run_id.contiguous(), vals, n_segments=max_out + 1)
+    sums = acc[:3, :max_out].T
+    cnts = acc[3, :max_out]
+    return PointBatch(sums / torch.clamp(cnts[:, None], min=1.0), cnts > 0)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from lidar_visual_odometry_tpu_torch import kernels
 from lidar_visual_odometry_tpu_torch.kernels import gn as kgn
 from lidar_visual_odometry_tpu_torch.kernels import nn as knn_k
 from lidar_visual_odometry_tpu_torch.kernels import segsum as kseg
+from lidar_visual_odometry_tpu_torch.kernels import topk as ktop
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +49,69 @@ def test_segment_sum_matches_plain(dev, gen, sorted_ids):
     # with atomics on the card): rtol 1e-5, atol 1e-4 for |v| ≲ 4
     torch.testing.assert_close(got, kseg.segment_sum_batched_plain(seg, vals, n_segments=513),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("W", [32768, 7680, 100])
+def test_flat_segment_sum_matches_plain(dev, gen, W):
+    """The mapping voxel filter's flat sum: non-decreasing run ids with the
+    masked points (zero values) in the overflow bucket S - 1, and ids in no
+    order."""
+    S = 4097
+    n_valid = W * 3 // 4
+    seg = np.full(W, S - 1, np.int32)
+    seg[:n_valid] = np.minimum(np.cumsum(gen.uniform(size=n_valid) < 0.4), S - 1)
+    vals = gen.normal(scale=30.0, size=(4, W)).astype(np.float32)
+    vals[:, n_valid:] = 0.0             # masked points carry zeros, as on the path
+    for ids in (seg, gen.integers(-1, S + 1, W).astype(np.int32)):
+        ids_t, vals_t = _on(dev, ids, vals)
+        kernels.reset_launch_counts()
+        got = kseg.segment_sum(ids_t, vals_t, n_segments=S)
+        counts = kernels.launch_counts()
+        assert counts["segment_sum"] == 1 and counts["segment_sum_batched"] == 0
+        # the same values summed per row of 2048 points and then over rows,
+        # against one scatter-add (atomics on the card): rtol 1e-5, atol 1e-3
+        # for sums of up to W values of |v| ≲ 100
+        torch.testing.assert_close(got, kseg.segment_sum_plain(ids_t, vals_t, n_segments=S),
+                                   rtol=1e-5, atol=1e-3)
+
+
+def _clustered(gen, n, centers, scale):
+    return (centers[gen.integers(0, len(centers), n)]
+            + gen.normal(size=(n, 3)) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("C", [16384, 32768])
+def test_block_topk_windowed_matches_plain(dev, gen, C):
+    centers = gen.uniform(-60, 60, (40, 3)) * np.array([1.0, 1.0, 0.05])
+    q, c = _on(dev, _clustered(gen, 4096, centers, 1.0), _clustered(gen, C, centers, 1.5))
+    mask = torch.from_numpy(gen.uniform(size=C) > 0.2).to(dev)
+    origin = torch.tensor([-256.0, -256.0], device=dev)
+    c_sorted, c_keys = ktop.sort_by_cell(c, mask, origin, cell=2.0, grid_w=256)
+    q_keys = ktop.cell_keys(q, origin, cell=2.0, grid_w=256)
+    order = torch.argsort(q_keys, stable=True)
+    q, q_keys = q[order].contiguous(), q_keys[order].contiguous()
+    kernels.reset_launch_counts()
+    d, i = ktop.block_topk_windowed(q, q_keys, c_sorted, c_keys)
+    assert kernels.launch_counts()["block_topk_windowed"] == 1
+    dp, ip = ktop.block_topk_windowed_plain(q, q_keys, c_sorted, c_keys)
+    # the same chunks, the same float32 expression without contraction and the
+    # same tie rule: identical distances and indices
+    torch.testing.assert_close(d, dp, rtol=0, atol=0)
+    torch.testing.assert_close(i, ip, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("Q,C,k", [(4096, 32768, 5), (1000, 777, 3)])
+def test_block_topk_matches_plain(dev, gen, Q, C, k):
+    q, c = _on(dev, gen.normal(size=(Q, 3)).astype(np.float32) * 20,
+               gen.normal(size=(C, 3)).astype(np.float32) * 20)
+    baked = knn_k.bake_mask(c, torch.from_numpy(gen.uniform(size=C) > 0.3).to(dev))
+    kernels.reset_launch_counts()
+    d, i = ktop.block_topk(q, baked.contiguous(), k=k)
+    assert kernels.launch_counts()["block_topk"] == 1
+    dp, ip = ktop.block_topk_plain(q, baked, k=k)
+    # as test_block_topk_windowed_matches_plain: identical
+    torch.testing.assert_close(d, dp, rtol=0, atol=0)
+    torch.testing.assert_close(i, ip, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B", [120, 512, 1])
@@ -86,3 +150,12 @@ def test_wrappers_reject_bad_input(dev):
         kgn.gn_inner_loop(*[torch.zeros(s, device=dev) for s in
                             ((4,), (3,), (3, 5), (3, 5), (3, 5), (1, 4),
                              (3, 6), (3, 6), (3, 6), (3, 6), (1, 6))])
+    with pytest.raises(TypeError):
+        kseg.segment_sum(torch.zeros(8, dtype=torch.int64, device=dev),
+                         torch.zeros((4, 8), device=dev), n_segments=3)
+    pts = torch.zeros((512, 3), device=dev)
+    keys = torch.zeros(512, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ktop.block_topk_windowed(pts[:100], keys[:100], pts, keys, q_tile=64)
+    with pytest.raises(TypeError):
+        ktop.block_topk(pts.double(), pts.double())

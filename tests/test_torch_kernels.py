@@ -54,8 +54,10 @@ def test_cpu_tensors_never_launch():
     kernels.reset_launch_counts()
     kseg.segment_sum_batched(torch.zeros((2, 8), dtype=torch.int32),
                              torch.ones((2, 4, 8)), n_segments=3)
+    kseg.segment_sum(torch.zeros(8, dtype=torch.int32), torch.ones((4, 8)), n_segments=3)
     assert kernels.launch_counts() == {
-        "segment_sum_batched": 0, "associate_kernel": 0, "gn_inner_loop": 0,
+        "segment_sum_batched": 0, "segment_sum": 0, "associate_kernel": 0,
+        "gn_inner_loop": 0, "block_topk_windowed": 0, "block_topk": 0,
     }
 
 
@@ -206,7 +208,7 @@ def test_library_path_tracks_source_and_flags(monkeypatch):
     from lidar_visual_odometry_tpu_torch.kernels import _build
 
     names = {_build.library_path(n).name for n in _build.SOURCES}
-    assert len(names) == 3 and all(n.endswith(".so") for n in names)
+    assert len(names) == len(_build.SOURCES) and all(n.endswith(".so") for n in names)
     plain = _build.library_path("gn")
     monkeypatch.setenv("LVO_NVCC_VERBOSE", "1")
     assert _build.library_path("gn") != plain

@@ -8,12 +8,14 @@ Phase 0  prints the card (name and power limit from nvidia-smi), the torch and
          ``lidar_visual_odometry_tpu_torch/csrc`` (one nvcc per source, in
          parallel).
 Phase 1  holds each kernel against its plain PyTorch version on the card, at
-         the shapes the lidar odometry path (K1-K3) and the mapping path (the
-         flat K1, K4, K5) give it, and times kernel, plain version and (where
-         one exists) the one PyTorch call that computes the same function. The
-         k-NN kernels search a world map built from the corridor's first nine
-         frames with the frame-9 features as queries, so the windowed
-         kernel's skip share is the path's own.
+         the shapes the lidar odometry path (K1-K3), the mapping path (the
+         flat K1, K4, K5) and the camera path (K6) give it, and times kernel,
+         plain version and (where one exists) the one PyTorch call that
+         computes the same function. The k-NN kernels search a world map
+         built from the corridor's first nine frames with the frame-9 features
+         as queries, so the windowed kernel's skip share is the path's own;
+         K6 tracks the features the path seeds on frame 0's image into frame
+         1's, level by level as the path does.
 Phase 2  drives the odometry path at full width: ``OdometryPipeline(SystemConfig(),
          device="cuda").run_chunked(scans, chunk=8, ingest="polar2")`` on the
          48-frame synthetic HDL-64 corridor (64 rings x 2048 azimuth bins), one
@@ -31,10 +33,21 @@ Phase 3  drives the fused SLAM path at full width: ``FullPipeline(SystemConfig()
 Phase 3b runs the first 17 frames with ``MappingConfig(windowed_nn=False)``
          (the dense search, kernel K5) and checks that its mapped positions
          match phase 3's within 1e-4 m.
+Phase 4  drives the camera path at full width: ``CamLidarPipeline(cfg,
+         device="cuda").run_chunked(scans, images, chunk=8, ingest="polar2")``
+         with the bench's cam-lidar configuration (640 x 192 camera, 768
+         feature slots, ``utils/bench_config.py``) on the same 48 frames and
+         their rendered camera images, one warm run and one timed run; it
+         checks that the timed run launched every kernel of the path (K6 four
+         times a frame), that ``ate_visual`` is within 0.01 m of the JAX
+         package's on the CPU with its tracker on the Pallas kernel in
+         interpret mode (``tools/jax_reference_camlidar.json``, from
+         ``tools/jax_reference_camlidar.py``) and that its lidar positions
+         equal phase 2's.
 
 Prints one JSON line with every kernel's numbers (launches counted on the
 path that runs the kernel: phase 2 for K1-K3, phase 3 for the flat K1 and K4,
-phase 3b for K5), the nvidia-smi line, and as its last line
+phase 3b for K5, phase 4 for K6), the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result line,
 when there is no CUDA device or any phase fails.
 """
@@ -59,6 +72,10 @@ REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # tools/jax_reference_slam.py: its mapped ATE gates the port's.
 SLAM_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "tools", "jax_reference_slam.json")
+# The JAX package's cam-lidar pipeline on the same sequence and images, run on
+# the CPU by tools/jax_reference_camlidar.py: its ate_visual gates the port's.
+CAMLIDAR_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tools", "jax_reference_camlidar.json")
 ATE_MARGIN = 0.01
 DENSE_FRAMES = 17     # phase 3b
 DENSE_TOL_M = 1e-4
@@ -473,6 +490,111 @@ def phase1_topk_dense(maps, queries, mcfg, dev):
     )
 
 
+def _lk_ops(win: int, affine: bool, fixed: bool, iters_run):
+    """float32 operations of one K6 level, summed over the active features.
+    An n×n bilinear sample mixes the rows of its n + 1 columns once and then
+    the columns, 3 a value: 3·n·(2n + 1). The setup samples the (win+2)²
+    patch, takes both gradients (4 a pixel) and the Gram sums (a product and
+    a sum each): 3 (2×2), or 21 over the six columns after forming the four
+    affine ones (4 a pixel), and a 6×6 Cholesky; with fixed_affine it also
+    forms the constant deformation of the residual (9 a pixel). An iteration
+    samples win² pixels, forms the residual (1 a pixel; + 10 for the affine
+    deformation, or + 1 to add the fixed one), projects it on 2 or 6 columns
+    and solves."""
+    m = win * win
+    setup = 3 * (win + 2) * (2 * win + 5) + m * 4
+    per_iter = 3 * win * (2 * win + 1) + m
+    if affine:
+        setup += m * (4 + 42) + 100
+        per_iter += m * (10 + 12) + 80
+    else:
+        setup += m * (6 + (9 if fixed else 0)) + 10
+        per_iter += m * (4 + (1 if fixed else 0)) + 20
+    n_active = int((iters_run >= 0).sum())
+    return n_active * setup + int(iters_run.sum()) * per_iter
+
+
+def phase1_lk(images, dev):
+    """K6 at the camera path's shapes: frame 0's pyramid (as the path
+    bootstraps it) against frame 1's (uint8, as the path uploads it), the
+    768 slots the path seeds on frame 0 with every seventh turned off, the
+    three forward levels coarse to fine (2×2 at levels 2 and 1, affine with
+    its parameters at level 0) and a level-0 call with the fitted
+    deformation as fixed_affine."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import lk as klk
+    from lidar_visual_odometry_tpu_torch.models import visual_frontend as vf
+    from lidar_visual_odometry_tpu_torch.ops import camera as cam_ops
+    from lidar_visual_odometry_tpu_torch.ops import image, se3
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+
+    cfg = camlidar_config()
+    vcfg = cfg.visual
+    win, eps = vcfg.lk_window, vcfg.lk_eps
+    img0 = torch.from_numpy(np.asarray(images[0], np.float32)).to(dev)
+    img1 = torch.from_numpy(np.clip(images[1] * 255.0 + 0.5, 0, 255).astype(np.uint8)).to(dev)
+    pyr0 = image.build_pyramid(img0, vcfg.lk_levels)
+    pyr1 = image.build_pyramid(img1.to(torch.float32) * (1.0 / 255.0), vcfg.lk_levels)
+    table = vf._replenish(vf.empty_table(vcfg.max_tracked, dev), pyr0[0],
+                          cam_ops.Pinhole.from_config(cfg.camera, dev), se3.identity_pose(dev),
+                          vcfg)
+    active = table.active.clone()
+    active[::7] = False
+    uv0 = table.uv
+    ms = plain_ms = err = 0.0
+    flips = iter_mismatch = 0
+    medians, shapes = [], []
+    n_bytes = n_ops = 0
+    guess = torch.zeros_like(uv0)
+    fixed = None
+    cases = ((2, False, vcfg.lk_iters_coarse), (1, False, vcfg.lk_iters_coarse),
+             (0, True, vcfg.lk_iters), (0, False, vcfg.lk_iters))
+    for level, affine, iters in cases:
+        args = (pyr0[level], pyr1[level], (uv0 / 2.0 ** level).contiguous(), guess.contiguous(),
+                active, fixed)
+        kw = dict(win=win, iters=iters, eps=eps, affine=affine, return_affine=affine,
+                  return_iters=True)
+        got = klk.lk_level(*args, **kw)
+        want = klk.lk_level_plain(*args, **kw)
+        torch.cuda.synchronize()
+        flips += int((got[1] != want[1]).sum())
+        iter_mismatch += int((got[-1] != want[-1]).sum())
+        diff = (got[0] - want[0]).abs()[active]
+        err = max(err, float(diff.max()))
+        medians.append(float(diff.median()))
+        ms += _time_ms(lambda: klk.lk_level(*args, **kw), 100)
+        plain_ms += _time_ms(lambda: klk.lk_level_plain(*args, **kw), 3)
+        H, W = args[0].shape
+        N = uv0.shape[0]
+        # both images, q (uv0, guess, active, fixed_affine) and the (N, 8) rows written
+        n_bytes += 4 * 2 * H * W + N * (4 * 4 + 1 + (16 if fixed is not None else 0)) + 32 * N
+        its = torch.where(active, want[-1], torch.full_like(want[-1], -1)).cpu()
+        n_ops += _lk_ops(win, affine, fixed is not None, its[its >= 0])
+        shapes.append(f"level {level} ({H}x{W}) {'affine' if affine else '2x2'}"
+                      f"{' fixed_affine' if fixed is not None else ''} {iters} it, "
+                      f"{float(want[-1][active].float().mean()):.2f} run")
+        if level > 0:
+            guess = want[0] * 2.0
+        elif affine:
+            fixed = (-want[2]).contiguous()     # the forward fit, negated: the "fixed" gate
+    # kernel and plain version sample, multiply and sum in the same order,
+    # each operation rounded alone: no flip, median |Δd| ≤ 1e-4 px, max ≤ 2·eps
+    if flips or max(medians) > 1e-4 or err > 2 * eps:
+        raise AssertionError(f"lk_level disagrees with its plain version: {flips} ok flips, "
+                             f"median |Δd| {max(medians)}, max {err}")
+    bound, by = _bound_ms(n_bytes, n_ops)
+    return dict(
+        name="lk_level", route="cuda",
+        source="lidar_visual_odometry_tpu_torch/csrc/lk.cu",
+        replaces="lidar_visual_odometry_tpu/ops/pallas_lk.py:543",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, ok_flips=flips, iteration_mismatches=iter_mismatch,
+        shapes=f"N {uv0.shape[0]} ({int(active.sum())} active), win {win}: " + "; ".join(shapes),
+        tolerance="no ok flip, median |Δd| ≤ 1e-4 px, max ≤ 2·eps = 0.02 px",
+    )
+
+
 def main() -> int:
     import torch
 
@@ -483,7 +605,10 @@ def main() -> int:
     from lidar_visual_odometry_tpu_torch.data import synthetic
     from lidar_visual_odometry_tpu_torch.eval import metrics
     from lidar_visual_odometry_tpu_torch.kernels import _build
+    from lidar_visual_odometry_tpu_torch.models import visual_frontend as vf
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import CamLidarPipeline
     from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import CAM, camlidar_config
     from lidar_visual_odometry_tpu_torch.utils.config import MappingConfig, SystemConfig
 
     dev = torch.device("cuda")
@@ -506,10 +631,15 @@ def main() -> int:
     workers = min(8, os.cpu_count() or 1)
     # threads, not processes: rendering is numpy, which releases the GIL, and
     # the script must leave no process behind
+    def render_image(k):
+        Rc, tc = synthetic.camera_from_velodyne_pose(*seq.pose(k))
+        return synthetic.render_image(seq.scene, Rc, tc, **CAM)[0]
+
     with ThreadPoolExecutor(workers) as ex:
         scans = list(ex.map(seq.scan, range(N_FRAMES)))
+        images = list(ex.map(render_image, range(N_FRAMES)))
     gt = np.stack([seq.pose(k)[1] for k in range(N_FRAMES)])
-    print(f"rendered {N_FRAMES} scans in {time.perf_counter() - t0:.1f} s "
+    print(f"rendered {N_FRAMES} scans and camera images in {time.perf_counter() - t0:.1f} s "
           f"({workers} threads)", flush=True)
 
     # ---- phase 1: each kernel against its plain version ----
@@ -519,11 +649,14 @@ def main() -> int:
     for fn in (lambda: phase1_segsum(rng, dev), lambda: phase1_assoc(rng, dev),
                lambda: phase1_gn(rng, dev), lambda: phase1_flat_segsum(rng, dev),
                lambda: phase1_topk_windowed(maps, queries, mcfg),
-               lambda: phase1_topk_dense(maps, queries, mcfg, dev)):
+               lambda: phase1_topk_dense(maps, queries, mcfg, dev),
+               lambda: phase1_lk(images, dev)):
         r = fn()
         results.append(r)
         extra = "".join(f", {key} {r[key]:.4f}" for key in ("skip_share", "cdist_topk_two_calls_ms")
                         if key in r)
+        extra += "".join(f", {key} {r[key]}" for key in ("ok_flips", "iteration_mismatches")
+                         if key in r)
         print(f"phase 1: {r['name']} [{r['shapes']}] max_abs_err {r['max_abs_err']:.3g} "
               f"({r['tolerance']}); kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
               f"library_ms {r['library_ms']}, bound_ms {r['bound_ms']:.5f} "
@@ -616,6 +749,50 @@ def main() -> int:
         raise AssertionError(f"dense and windowed mapping disagree by {diff} m")
     launches["block_topk"] = counts["block_topk"]
     print(f"phases 0-3b took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 4: the camera path at full width ----
+    with open(CAMLIDAR_REFERENCE) as f:
+        cl_ref = json.load(f)
+    jax_ate_visual = cl_ref["ate_visual_m"]
+    cl_cfg = camlidar_config()
+    CamLidarPipeline(cl_cfg, device="cuda").run_chunked(scans, images, chunk=8, ingest="polar2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    vf.reset_stats()
+    pipe = CamLidarPipeline(cl_cfg, device="cuda")
+    cl = pipe.run_chunked(scans, images, chunk=8, ingest="polar2")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = pipe.last_wall
+    peak = torch.cuda.max_memory_allocated()
+    R0, t00 = seq.pose(0)
+    gt_rel = np.stack([R0.T @ (seq.pose(k)[1] - t00) for k in range(N_FRAMES)])
+    ate_visual = metrics.ate_rmse(cl.visual_positions, gt_rel, align=False)
+    dev_jax = float(np.abs(cl.visual_positions - np.asarray(cl_ref["visual_positions"])).max())
+    tracked = int(vf.stats["tracked"]) / vf.stats["frames"]
+    solve_its = int(vf.stats["solve_iterations"]) / vf.stats["frames"]
+    print(f"phase 4: {frames} frames, {frames / wall:.2f} frames/s, "
+          f"{1e3 * wall / frames:.3f} ms/frame, ate_visual {ate_visual:.5f} m (JAX CPU "
+          f"interpret-mode reference {jax_ate_visual:.5f} m + {ATE_MARGIN}), largest "
+          f"visual-position difference from the JAX trajectory {dev_jax:.5f} m, "
+          f"{tracked:.1f} tracked features and {solve_its:.2f} solve_pose iterations a frame, "
+          f"peak device memory {peak / 2**20:.1f} MiB, launches {counts}", flush=True)
+    if cl.visual_positions.shape != (N_FRAMES, 3) or not np.isfinite(cl.visual_positions).all():
+        raise AssertionError(f"bad visual trajectory: shape {cl.visual_positions.shape}")
+    camera_path = odometry_path + ("lk_level",)
+    if min(counts[name] for name in camera_path) == 0:
+        raise AssertionError(f"a kernel of the camera path was never launched: {counts}")
+    if counts["lk_level"] != 4 * frames:
+        raise AssertionError(f"expected 4 lk_level launches a frame: {counts['lk_level']}")
+    if not ate_visual <= jax_ate_visual + ATE_MARGIN:
+        raise AssertionError(f"ate_visual {ate_visual} m exceeds the JAX reference "
+                             f"{jax_ate_visual} + {ATE_MARGIN}")
+    if not np.array_equal(cl.lidar_positions, res.positions):
+        raise AssertionError("the cam-lidar run's lidar positions differ from phase 2's: "
+                             f"{float(np.abs(cl.lidar_positions - res.positions).max())} m")
+    launches["lk_level"] = counts["lk_level"]
+    print(f"phases 0-4 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for r in results:
         r["launches"] = launches[r["name"]]

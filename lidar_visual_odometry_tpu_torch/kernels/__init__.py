@@ -8,6 +8,7 @@ One module per TPU kernel it replaces:
 * ``gn``     — ``ops/pallas_gn.py`` ``gn_inner_loop`` (K3)
 * ``topk``   — ``ops/pallas_nn.py`` ``block_topk_windowed`` (K4) and
   ``block_topk`` (K5)
+* ``lk``     — ``ops/pallas_lk.py`` ``lk_level`` (K6)
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version, a CUDA tensor launches the kernel (built from
@@ -16,7 +17,7 @@ plain PyTorch version, a CUDA tensor launches the kernel (built from
 
 from __future__ import annotations
 
-from . import gn, nn, segsum, topk
+from . import gn, lk, nn, segsum, topk
 
 # wrapper name → (module, attribute that counts its launches)
 _COUNTERS = {
@@ -26,6 +27,7 @@ _COUNTERS = {
     "gn_inner_loop": (gn, "launches"),
     "block_topk_windowed": (topk, "windowed_launches"),
     "block_topk": (topk, "launches"),
+    "lk_level": (lk, "launches"),
 }
 
 

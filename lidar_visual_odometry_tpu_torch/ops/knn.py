@@ -1,6 +1,7 @@
-"""Scan-to-scan association, ported from the kernel branch of
-``lidar_visual_odometry_tpu/ops/knn.py`` (``associate_edges_coords`` :325,
-``associate_planes_coords`` :364).
+"""Nearest-neighbour searches, ported from ``lidar_visual_odometry_tpu/ops/knn.py``:
+the scan-to-scan association of its kernel branch (``associate_edges_coords``
+:325, ``associate_planes_coords`` :364) and the dense k-NN of the visual depth
+association (``pairwise_sqdist`` :30, ``knn`` :411).
 
 The A-LOAM ring-structured searches (``laserOdometry.cpp:384-561``) resolve to
 coordinates through kernel K2 (``kernels.nn.associate_kernel``): the nearest
@@ -18,6 +19,36 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import nn
+
+_BIG = 1e30
+
+
+def pairwise_sqdist(q: torch.Tensor, c: torch.Tensor,
+                    c_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(Q, 3) × (C, 3) → (Q, C) squared distances |q|² + |c|² − 2 q·c in
+    full float32 (the product never runs in TF32: ``utils.device``);
+    masked candidates → 1e30."""
+    qq = torch.sum(q * q, dim=-1, keepdim=True)
+    cc = torch.sum(c * c, dim=-1)[None, :]
+    d = torch.clamp(qq + cc - 2.0 * (q @ c.T), min=0.0)
+    if c_mask is not None:
+        d = torch.where(c_mask[None, :], d, torch.full_like(d, _BIG))
+    return d
+
+
+def knn(q_xyz: torch.Tensor, c_xyz: torch.Tensor, c_mask: torch.Tensor,
+        k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense k-NN: (Q, k) indices and squared distances, ascending, the lower
+    index first among equal distances (as ``lax.top_k``): k arg-min sweeps
+    over the distance matrix, each taking the first minimum."""
+    d = pairwise_sqdist(q_xyz, c_xyz, c_mask)
+    idx, dist = [], []
+    for _ in range(k):
+        i = torch.argmin(d, dim=1, keepdim=True)
+        dist.append(d.gather(1, i))
+        idx.append(i)
+        d.scatter_(1, i, float("inf"))
+    return torch.cat(idx, dim=1), torch.cat(dist, dim=1)
 
 
 class EdgeAssocCoords(NamedTuple):

@@ -12,6 +12,7 @@ import torch
 
 from lidar_visual_odometry_tpu_torch import kernels
 from lidar_visual_odometry_tpu_torch.kernels import gn as kgn
+from lidar_visual_odometry_tpu_torch.kernels import lk as klk
 from lidar_visual_odometry_tpu_torch.kernels import nn as knn_k
 from lidar_visual_odometry_tpu_torch.kernels import segsum as kseg
 from lidar_visual_odometry_tpu_torch.kernels import topk as ktop
@@ -139,6 +140,59 @@ def test_gn_inner_loop_matches_plain(dev, gen):
     torch.testing.assert_close(q * torch.sign(torch.dot(q, qr)), qr, rtol=0, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def corridor_pair():
+    """Two consecutive frames of the bench corridor's camera (640 × 192) and
+    the three-level pyramids, on the host."""
+    from lidar_visual_odometry_tpu_torch.data import synthetic
+    from lidar_visual_odometry_tpu_torch.ops import image
+
+    seq = synthetic.SyntheticSequence(n_frames=3, width=1800, speed=1.0, yaw_rate=0.004,
+                                      noise=0.01)
+    cam = dict(fx=240.0, fy=240.0, cx=320.0, cy=96.0, width=640, height=192)
+    imgs = [torch.from_numpy(synthetic.render_image(
+        seq.scene, *synthetic.camera_from_velodyne_pose(*seq.pose(k)), **cam)[0])
+        for k in (0, 1)]
+    return [image.build_pyramid(im, 3) for im in imgs]
+
+
+@pytest.mark.parametrize("level,affine,iters,fixed,eps", [
+    (0, True, 10, False, 0.01), (1, False, 4, False, 0.01), (2, False, 4, False, 0.01),
+    (0, False, 10, True, 0.01), (0, True, 10, False, 0.0), (1, False, 4, False, 0.0),
+])
+def test_lk_level_matches_plain(dev, gen, corridor_pair, level, affine, iters, fixed, eps):
+    """K6 at the camera path's shapes (768 features, win 13), interior and
+    border features, a fifth of the rows inactive."""
+    pyr0, pyr1 = corridor_pair
+    i0, i1 = pyr0[level].to(dev), pyr1[level].to(dev)
+    H, W = i0.shape
+    N = 768
+    uv = np.stack([gen.uniform(0, W - 1, N), gen.uniform(0, H - 1, N)], -1)
+    uv[:96, 0] = gen.uniform(0, 9, 96)              # within win/2 + 2 px of a border
+    uv[96:192, 1] = H - 1 - gen.uniform(0, 9, 96)
+    guess = gen.normal(0, 1.0 / 2 ** level, (N, 2))
+    act = gen.uniform(size=N) > 0.2
+    fa = gen.normal(0, 0.01, (N, 4)) if fixed else None
+    uv, guess, fa_t = _on(dev, uv.astype(np.float32), guess.astype(np.float32),
+                          (fa if fixed else np.zeros((N, 4))).astype(np.float32))
+    act = torch.from_numpy(act).to(dev)
+    kw = dict(win=13, iters=iters, eps=eps, affine=affine, return_affine=affine,
+              return_iters=True)
+    kernels.reset_launch_counts()
+    got = klk.lk_level(i0, i1, uv, guess, act, fa_t if fixed else None, **kw)
+    assert kernels.launch_counts()["lk_level"] == 1
+    want = klk.lk_level_plain(i0, i1, uv, guess, act, fa_t if fixed else None, **kw)
+    # the same samples, products and sums in the same order, each rounded on
+    # its own: identical flags and iteration counts; displacements within
+    # the stated tolerance (median 1e-4 px, max 2·eps + 1e-4 px)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[-1], want[-1], rtol=0, atol=0)
+    diff = (got[0] - want[0]).abs()
+    assert float(diff.median()) <= 1e-4 and float(diff.max()) <= 2 * eps + 1e-4, diff.max()
+    if affine:
+        assert float((got[2] - want[2]).abs().max()) <= 1e-3
+
+
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(TypeError):
         kseg.segment_sum_batched(torch.zeros((2, 8), dtype=torch.int64, device=dev),
@@ -159,3 +213,11 @@ def test_wrappers_reject_bad_input(dev):
         ktop.block_topk_windowed(pts[:100], keys[:100], pts, keys, q_tile=64)
     with pytest.raises(TypeError):
         ktop.block_topk(pts.double(), pts.double())
+    img = torch.zeros((48, 160), device=dev)
+    uv = torch.zeros((8, 2), device=dev)
+    with pytest.raises(ValueError):
+        klk.lk_level(img, img, uv, uv, win=13, affine=True, fixed_affine=torch.zeros((8, 4), device=dev))
+    with pytest.raises(ValueError):
+        klk.lk_level(img[:16], img[:16], uv, uv, win=13)
+    with pytest.raises(TypeError):
+        klk.lk_level(img, img, uv, uv, torch.ones(8, device=dev), win=13)

@@ -16,6 +16,7 @@ from lidar_visual_odometry_tpu.ops import pallas_gn, pallas_nn, pallas_segsum
 from lidar_visual_odometry_tpu.ops import se3 as jse3
 from lidar_visual_odometry_tpu_torch import kernels
 from lidar_visual_odometry_tpu_torch.kernels import gn as kgn
+from lidar_visual_odometry_tpu_torch.kernels import lk as klk
 from lidar_visual_odometry_tpu_torch.kernels import nn as knn_k
 from lidar_visual_odometry_tpu_torch.kernels import segsum as kseg
 
@@ -55,9 +56,11 @@ def test_cpu_tensors_never_launch():
     kseg.segment_sum_batched(torch.zeros((2, 8), dtype=torch.int32),
                              torch.ones((2, 4, 8)), n_segments=3)
     kseg.segment_sum(torch.zeros(8, dtype=torch.int32), torch.ones((4, 8)), n_segments=3)
+    img = torch.rand((24, 40))
+    klk.lk_level(img, img, torch.full((8, 2), 12.0), torch.zeros((8, 2)), win=9)
     assert kernels.launch_counts() == {
         "segment_sum_batched": 0, "segment_sum": 0, "associate_kernel": 0,
-        "gn_inner_loop": 0, "block_topk_windowed": 0, "block_topk": 0,
+        "gn_inner_loop": 0, "block_topk_windowed": 0, "block_topk": 0, "lk_level": 0,
     }
 
 

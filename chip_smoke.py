@@ -9,12 +9,15 @@ Phase 0  prints the card (name and power limit from nvidia-smi), the torch and
          parallel).
 Phase 1  holds each kernel against its plain PyTorch version on the card, at
          the shapes the lidar odometry path (K1-K3), the mapping path (the
-         flat K1, K4, K5) and the camera path (K6) give it, and times kernel,
-         plain version and (where one exists) the one PyTorch call that
-         computes the same function. The k-NN kernels search a world map
-         built from the corridor's first nine frames with the frame-9 features
-         as queries, so the windowed kernel's skip share is the path's own;
-         K6 tracks the features the path seeds on frame 0's image into frame
+         flat K1, K4, K5) and the camera path (K6) give it, and the k-NN
+         entry points off the product path (K7 in both output forms at the
+         odometry association's shapes, K8 and K5p at the mapping shapes), and
+         times kernel, plain version and (where one exists) the one PyTorch
+         call that computes the same function. The mapping k-NN kernels search
+         a world map built from the corridor's first nine frames with the
+         frame-9 features as queries, so the windowed kernel's skip share is
+         the path's own; K7 associates frame 9's features with frame 8's; K6
+         tracks the features the path seeds on frame 0's image into frame
          1's, level by level as the path does.
 Phase 2  drives the odometry path at full width: ``OdometryPipeline(SystemConfig(),
          device="cuda").run_chunked(scans, chunk=8, ingest="polar2")`` on the
@@ -44,10 +47,20 @@ Phase 4  drives the camera path at full width: ``CamLidarPipeline(cfg,
          interpret mode (``tools/jax_reference_camlidar.json``, from
          ``tools/jax_reference_camlidar.py``) and that its lidar positions
          equal phase 2's.
+Phase 5  drives the k-NN entry points off the product path on every frame:
+         ``associate_{edges,planes}_ringblocked`` (K7, index form) and
+         ``associate_*_coords_top2`` (K7, coordinate form) at phase 2's
+         relative poses must match the path's K2 association (valid masks,
+         coordinates); each frame's mapping queries at phase 3's poses against
+         the map of the frames before: K8 must match K5 (distances bit for
+         bit, coordinates of K5's candidates), K5p must give K5's distances cut
+         to 2^-8 and K5's indices except at ties of the cut distance (counted).
 
-Prints one JSON line with every kernel's numbers (launches counted on the
+Prints one JSON line with all ten kernels' numbers, K7's two output forms in
+two rows (launches counted on the
 path that runs the kernel: phase 2 for K1-K3, phase 3 for the flat K1 and K4,
-phase 3b for K5, phase 4 for K6), the nvidia-smi line, and as its last line
+phase 3b for K5, phase 4 for K6, phase 5 for K7, K8 and K5p), the nvidia-smi
+line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result line,
 when there is no CUDA device or any phase fails.
 """
@@ -60,6 +73,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 
@@ -354,12 +368,11 @@ def phase1_flat_segsum(rng, dev):
     )
 
 
-def _world_map(scans, seq, dev):
-    """The corridor's first MAP_FRAMES frames merged into the bounded voxel
-    maps at their true poses, and the next frame's downsampled features in the
-    world frame, as the mapping path searches them."""
-    import torch
-
+def _map_frames(imgs, poses, dev):
+    """For each frame k of the packed polar images: its features, its
+    downsampled corner and surf features placed in the world by poses[k] (with
+    their masks), and the bounded voxel maps of frames 0..k-1, merged as the
+    mapping path merges them (the maps grow after each yield)."""
     from lidar_visual_odometry_tpu_torch.models import device_mapping as dm
     from lidar_visual_odometry_tpu_torch.models import scan_registration as sr
     from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
@@ -369,32 +382,75 @@ def _world_map(scans, seq, dev):
 
     cfg = SystemConfig()
     lcfg, mcfg = cfg.lidar, cfg.mapping
-    imgs = pc.polar_image_to_tensor(pc.pack_polar_chunk(
-        scans[:MAP_FRAMES + 1], n_scans=lcfg.n_scans, width=lcfg.azimuth_bins,
-        min_range=lcfg.min_range, max_range=lcfg.max_range, channels=1), dev)
     state = dm.init_state(mcfg, dev)
     maps = {"corner": (state.corner, state.corner_mask), "surf": (state.surf, state.surf_mask)}
     classes = (("corner", "less_sharp", mcfg.corner_leaf, mcfg.corner_slot, mcfg.map_corner_cap),
                ("surf", "less_flat", mcfg.surf_leaf, mcfg.surf_slot, mcfg.map_surf_cap))
-    queries = {}
-    for k in range(MAP_FRAMES + 1):
-        yaw = seq.yaw_rate * k
-        pose = se3.Pose(
-            torch.tensor([np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)], dtype=torch.float32,
-                         device=dev),
-            torch.tensor(seq.pose(k)[1] - seq.pose(0)[1], dtype=torch.float32, device=dev))
+    for k in range(imgs.shape[0]):
         feats = sr.register_polar_impl(imgs[k], lcfg).features
+        queries = {}
         for name, field, leaf, slot, cap in classes:
             fc = getattr(feats, field)
             ds = pc.voxel_downsample(fc.xyz, fc.mask, leaf=leaf, max_out=slot)
-            world = se3.se3_apply(pose, ds.xyz)
-            if k == MAP_FRAMES:
-                queries[name] = (world, pose)
-            else:
-                merged = voxel_merge(*maps[name], world, ds.mask, pose.t, leaf=leaf, cap=cap,
-                                     drop_radius=mcfg.map_drop_radius)
-                maps[name] = (merged.xyz, merged.mask)
-    return maps, queries, mcfg
+            queries[name] = (se3.se3_apply(poses[k], ds.xyz), ds.mask)
+        yield k, feats, queries, maps
+        for name, field, leaf, slot, cap in classes:
+            merged = voxel_merge(*maps[name], *queries[name], poses[k].t, leaf=leaf, cap=cap,
+                                 drop_radius=mcfg.map_drop_radius)
+            maps[name] = (merged.xyz, merged.mask)
+
+
+def _pack(scans, dev):
+    from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    lcfg = SystemConfig().lidar
+    return pc.polar_image_to_tensor(pc.pack_polar_chunk(
+        scans, n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
+        max_range=lcfg.max_range, channels=1), dev)
+
+
+def _pose(q, t, dev):
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.ops import se3
+
+    return se3.Pose(torch.tensor(q, dtype=torch.float32, device=dev),
+                    torch.tensor(t, dtype=torch.float32, device=dev))
+
+
+def _world_map(scans, seq, dev):
+    """The corridor's first MAP_FRAMES frames merged into the bounded voxel
+    maps at their true poses, and the next frame's downsampled features in the
+    world frame, as the mapping path searches them. Also the odometry
+    association's inputs between the last two of these frames: that frame's
+    sharp (flat) features moved by the true relative pose, against the frame
+    before's less-sharp (less-flat) cloud in its ring-major blocks, baked."""
+    from lidar_visual_odometry_tpu_torch.kernels import nn
+    from lidar_visual_odometry_tpu_torch.ops import se3
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    cfg = SystemConfig()
+    poses = []
+    for k in range(MAP_FRAMES + 1):
+        yaw = seq.yaw_rate * k
+        poses.append(_pose([np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)],
+                           seq.pose(k)[1] - seq.pose(0)[1], dev))
+    R = cfg.odometry.n_rings
+    prev = None
+    for k, feats, queries, maps in _map_frames(_pack(scans[:MAP_FRAMES + 1], dev), poses, dev):
+        if k < MAP_FRAMES:
+            prev = feats
+            continue
+        rel = se3.se3_compose(se3.se3_inverse(poses[k - 1]), poses[k])
+        assoc = {
+            kind: (se3.se3_apply(rel, cur.xyz).contiguous(),
+                   nn.bake_mask(old.xyz.reshape(R, -1, 3), old.mask.reshape(R, -1)).contiguous())
+            for kind, cur, old in (("edges", feats.sharp, prev.less_sharp),
+                                   ("planes", feats.flat, prev.less_flat))
+        }
+        return (dict(maps), {name: (queries[name][0], poses[k]) for name in queries},
+                cfg.mapping, assoc)
 
 
 def _knn_inputs(maps, queries, mcfg, name):
@@ -488,6 +544,111 @@ def phase1_topk_dense(maps, queries, mcfg, dev):
         shapes=f"Q={Q} x C={C} (surf), k {k}",
         tolerance="exact (atol 0), identical indices",
     )
+
+
+def phase1_ring_top2(assoc, coords):
+    """K7 at the odometry association's shapes, in one output form."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import nn
+
+    fn = nn.ring_top2_coords if coords else nn.ring_top2_pallas
+    plain = nn.ring_top2_coords_plain if coords else nn.ring_top2_pallas_plain
+    ms = plain_ms = yard_ms = err = 0.0
+    n_bytes = n_ops = 0
+    shapes = []
+    for kind in ("edges", "planes"):
+        q, c = assoc[kind]
+        Q, (R, B, _) = q.shape[0], c.shape
+        out, ref = fn(q, c), plain(q, c)
+        torch.cuda.synchronize()
+        err = max(err, float((out[0] - ref[0]).abs().max()))
+        # the same float32 expression without contraction and the same tie
+        # rules (K2's loop): identical distances, indices and coordinates
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"{fn.__name__} disagrees with its plain version ({kind}): {err}")
+        ms += _time_ms(lambda: fn(q, c), 100)
+        plain_ms += _time_ms(lambda: plain(q, c), 5)
+        flat = c.reshape(-1, 3)
+
+        def yardstick():
+            # for information only: cdist + topk (+ the coordinate gather);
+            # cdist's matrix-product distances round otherwise
+            top = torch.topk(torch.cdist(q, flat).reshape(Q, R, B), 2, dim=2, largest=False)
+            return flat.reshape(R, B, 3)[torch.arange(R, device=q.device)[None, :, None],
+                                         top.indices] if coords else top
+
+        yard_ms += _time_ms(yardstick, 20)
+        n_bytes += 4 * (3 * Q + 3 * R * B + (8 if coords else 4) * Q * R)
+        n_ops += 8 * Q * R * B        # 3 sub, 3 mul, 2 add per distance
+        shapes.append(f"{kind} Q={Q} vs ({R},{B},3)")
+    bound, by = _bound_ms(n_bytes, n_ops)
+    yard_key = "cdist_topk_gather_three_calls_ms" if coords else "cdist_topk_two_calls_ms"
+    return {
+        "name": fn.__name__, "route": "cuda",
+        "source": "lidar_visual_odometry_tpu_torch/csrc/nn.cu",
+        "replaces": ("lidar_visual_odometry_tpu/ops/pallas_nn.py:696" if coords
+                     else "lidar_visual_odometry_tpu/ops/pallas_nn.py:85"),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None, yard_key: yard_ms,
+        "shapes": f"frame {MAP_FRAMES} against frame {MAP_FRAMES - 1}, true relative pose: "
+                  + ", ".join(shapes),
+        "tolerance": "exact (atol 0), identical indices" + (" and coordinates" if coords else ""),
+    }
+
+
+def phase1_topk_coords_packed(maps, queries, mcfg, packed):
+    """K8 (``block_topk_coords``) or K5p (``block_topk(packed=True)``) at the
+    mapping shapes: the frame-9 corner and surf queries against the world map."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import nn, topk
+
+    k = mcfg.knn
+    if packed:
+        fn = partial(topk.block_topk, k=k, packed=True)
+        plain = partial(topk.block_topk_packed_plain, k=k)
+    else:
+        fn = partial(topk.block_topk_coords, k=k)
+        plain = partial(topk.block_topk_coords_plain, k=k)
+    ms = plain_ms = yard_ms = 0.0
+    n_bytes = n_ops = 0
+    shapes = []
+    for name in ("corner", "surf"):
+        q = queries[name][0].contiguous()
+        c = nn.bake_mask(*maps[name]).contiguous()
+        Q, C = q.shape[0], c.shape[0]
+        out, ref = fn(q, c), plain(q, c)
+        torch.cuda.synchronize()
+        # K5's loop, another key or epilogue: identical distances, indices
+        # and coordinates
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"{'block_topk(packed)' if packed else 'block_topk_coords'} "
+                                 f"disagrees with its plain version ({name})")
+        ms += _time_ms(lambda: fn(q, c), 50)
+        plain_ms += _time_ms(lambda: plain(q, c), 3)
+
+        def yardstick():
+            # for information only: cdist + topk (+ the coordinate gather)
+            top = torch.topk(torch.cdist(q, c), k, largest=False)
+            return top if packed else c[top.indices]
+
+        yard_ms += _time_ms(yardstick, 20)
+        n_bytes += 4 * (3 * Q + 3 * C + (2 if packed else 4) * k * Q)
+        n_ops += 8 * Q * C
+        shapes.append(f"Q={Q} x C={C} ({name})")
+    bound, by = _bound_ms(n_bytes, n_ops)
+    return {
+        "name": "block_topk_packed" if packed else "block_topk_coords", "route": "cuda",
+        "source": "lidar_visual_odometry_tpu_torch/csrc/topk.cu",
+        "replaces": ("lidar_visual_odometry_tpu/ops/pallas_nn.py:317" if packed
+                     else "lidar_visual_odometry_tpu/ops/pallas_nn.py:643"),
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        ("cdist_topk_two_calls_ms" if packed else "cdist_topk_gather_three_calls_ms"): yard_ms,
+        "shapes": f"one mapping round, k {k}: " + ", ".join(shapes),
+        "tolerance": "exact (atol 0), identical indices" + ("" if packed else " and coordinates"),
+    }
 
 
 def _lk_ops(win: int, affine: bool, fixed: bool, iters_run):
@@ -595,6 +756,100 @@ def phase1_lk(images, dev):
     )
 
 
+def phase5_knn(scans, odo, mapped, dev):
+    """The k-NN entry points off the product path, on every frame.
+
+    Odometry association: each frame's sharp (flat) features, moved by the
+    relative pose phase 2 converged to, against the frame before's less-sharp
+    (less-flat) cloud; ``associate_*_ringblocked`` (K7's index form),
+    ``associate_*_coords_top2`` (K7's coordinate form inside the reference's
+    off-TPU cross-ring selection) and the path's ``associate_*_coords`` (K2)
+    must give equal valid masks and, where valid, equal coordinates.
+    Mapping query: each frame's downsampled features at phase 3's mapped pose
+    against the map of the frames before it (rebuilt at those poses): K8's
+    distances equal K5's bit for bit and its coordinates are K5's candidates';
+    K5p's distances are K5's cut to 2^-8, and where its index differs the two
+    candidates' cut distances tie (counted, each pair within 2^-8 relative)."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch import kernels
+    from lidar_visual_odometry_tpu_torch.kernels import nn, topk
+    from lidar_visual_odometry_tpu_torch.ops import knn, se3
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    cfg = SystemConfig()
+    ocfg, k_nn = cfg.odometry, cfg.mapping.knn
+    R = ocfg.n_rings
+    gate = dict(dist_sq_threshold=ocfg.dist_sq_threshold, nearby_scan=ocfg.nearby_scan)
+    n = len(scans)
+    poses_map = [_pose(mapped.quaternions[k], mapped.positions[k], dev) for k in range(n)]
+    stats = {"edges valid": 0, "planes valid": 0, "map slots": 0, "K5p ties": 0}
+    tie_rel = 0.0
+    cut = ~0x7FFF
+    prev = None
+    kernels.reset_launch_counts()
+    for k, feats, queries, maps in _map_frames(_pack(scans, dev), poses_map, dev):
+        if k == 0:
+            prev = feats
+            continue
+        rel = se3.se3_compose(se3.se3_inverse(_pose(odo.quaternions[k - 1], odo.positions[k - 1], dev)),
+                              _pose(odo.quaternions[k], odo.positions[k], dev))
+        for kind, cur, old in (("edges", feats.sharp, prev.less_sharp),
+                               ("planes", feats.flat, prev.less_flat)):
+            blocks, mblocks = old.xyz.reshape(R, -1, 3), old.mask.reshape(R, -1)
+            args = (se3.se3_apply(rel, cur.xyz).contiguous(), cur.mask, blocks, mblocks)
+            if kind == "edges":
+                by_idx = knn.associate_edges_ringblocked(*args, **gate)
+                top2 = knn.associate_edges_coords_top2(*args, **gate)
+                k2 = knn.associate_edges_coords(*args, **gate)
+                pairs = ((by_idx.j0, top2.a, k2.a), (by_idx.j2, top2.b, k2.b))
+            else:
+                by_idx = knn.associate_planes_ringblocked(*args, **gate)
+                top2 = knn.associate_planes_coords_top2(*args, **gate)
+                k2 = knn.associate_planes_coords(*args, **gate)
+                pairs = ((by_idx.j0, top2.j, k2.j), (by_idx.j2, top2.l, k2.l),
+                         (by_idx.j3, top2.m, k2.m))
+            v = k2.valid
+            flat = blocks.reshape(-1, 3)
+            same = (torch.equal(by_idx.valid, v) and torch.equal(top2.valid, v)
+                    and all(torch.equal(flat[j.long()][v], c[v]) and torch.equal(t[v], c[v])
+                            for j, t, c in pairs))
+            if not same:
+                raise AssertionError(f"phase 5, frame {k} ({kind}): K7's associations disagree "
+                                     "with K2's")
+            stats[f"{kind} valid"] += int(v.sum())
+        for name in ("corner", "surf"):
+            q = queries[name][0].contiguous()
+            c = nn.bake_mask(*maps[name]).contiguous()
+            d5, i5 = topk.block_topk(q, c, k=k_nn)
+            d8, c8 = topk.block_topk_coords(q, c, k=k_nn)
+            dp, ip = topk.block_topk(q, c, k=k_nn, packed=True)
+            if not (torch.equal(d8, d5) and torch.equal(c8, c[i5.long()])):
+                raise AssertionError(f"phase 5, frame {k} ({name}): K8 disagrees with K5")
+            if not torch.equal(dp.view(torch.int32), d5.view(torch.int32) & cut):
+                raise AssertionError(f"phase 5, frame {k} ({name}): K5p's distances are not "
+                                     "K5's cut to 2^-8")
+            tie = ip != i5
+            if bool(tie.any()):
+                # the exact distance of K5p's candidate, rounded as the kernels round it
+                diff = q[tie.nonzero()[:, 0]] - c[ip[tie].long()]
+                sq = diff * diff
+                alt = (sq[:, 0] + sq[:, 1]) + sq[:, 2]
+                if not torch.equal(alt.view(torch.int32) & cut, dp[tie].view(torch.int32)):
+                    raise AssertionError(f"phase 5, frame {k} ({name}): a K5p index differs "
+                                         "from K5's without a tie of the cut distance")
+                rel_diff = float(((alt - d5[tie]).abs() / torch.maximum(alt, d5[tie])).max())
+                if not rel_diff <= 2.0 ** -8:
+                    raise AssertionError(f"phase 5: tied distances {rel_diff} apart (relative)")
+                tie_rel = max(tie_rel, rel_diff)
+                stats["K5p ties"] += int(tie.sum())
+            stats["map slots"] += i5.numel()
+        prev = feats
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    return counts, stats, tie_rel
+
+
 def main() -> int:
     import torch
 
@@ -645,23 +900,27 @@ def main() -> int:
     # ---- phase 1: each kernel against its plain version ----
     results = []
     rng = np.random.default_rng(SEED)
-    maps, queries, mcfg = _world_map(scans, seq, dev)
+    maps, queries, mcfg, assoc = _world_map(scans, seq, dev)
     for fn in (lambda: phase1_segsum(rng, dev), lambda: phase1_assoc(rng, dev),
                lambda: phase1_gn(rng, dev), lambda: phase1_flat_segsum(rng, dev),
                lambda: phase1_topk_windowed(maps, queries, mcfg),
                lambda: phase1_topk_dense(maps, queries, mcfg, dev),
-               lambda: phase1_lk(images, dev)):
+               lambda: phase1_lk(images, dev),
+               lambda: phase1_ring_top2(assoc, coords=False),
+               lambda: phase1_ring_top2(assoc, coords=True),
+               lambda: phase1_topk_coords_packed(maps, queries, mcfg, packed=False),
+               lambda: phase1_topk_coords_packed(maps, queries, mcfg, packed=True)):
         r = fn()
         results.append(r)
-        extra = "".join(f", {key} {r[key]:.4f}" for key in ("skip_share", "cdist_topk_two_calls_ms")
-                        if key in r)
+        extra = "".join(f", {key} {r[key]:.4f}" for key in (
+            "skip_share", "cdist_topk_two_calls_ms", "cdist_topk_gather_three_calls_ms") if key in r)
         extra += "".join(f", {key} {r[key]}" for key in ("ok_flips", "iteration_mismatches")
                          if key in r)
         print(f"phase 1: {r['name']} [{r['shapes']}] max_abs_err {r['max_abs_err']:.3g} "
               f"({r['tolerance']}); kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
               f"library_ms {r['library_ms']}, bound_ms {r['bound_ms']:.5f} "
               f"({r['bound_by']}){extra}", flush=True)
-    del maps, queries
+    del maps, queries, assoc
     print(f"phases 0-1 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 2: the odometry path at full width ----
@@ -793,6 +1052,17 @@ def main() -> int:
                              f"{float(np.abs(cl.lidar_positions - res.positions).max())} m")
     launches["lk_level"] = counts["lk_level"]
     print(f"phases 0-4 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 5: the k-NN entry points off the product path ----
+    counts, stats, tie_rel = phase5_knn(scans, res, mapped, dev)
+    print(f"phase 5: {frames} frames, K7 (both forms) agrees with K2 and K8 with K5, K5p with K5 "
+          f"up to ties of the cut distance: {stats}, largest relative gap of a tie {tie_rel:.3g} "
+          f"(bound 2^-8), launches {counts}", flush=True)
+    knn_path = ("ring_top2_pallas", "ring_top2_coords", "block_topk_coords", "block_topk_packed")
+    if min(counts[name] for name in knn_path) == 0:
+        raise AssertionError(f"a kernel of the k-NN entry points was never launched: {counts}")
+    launches.update({name: counts[name] for name in knn_path})
+    print(f"phases 0-5 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for r in results:
         r["launches"] = launches[r["name"]]

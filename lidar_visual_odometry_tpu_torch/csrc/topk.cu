@@ -1,4 +1,4 @@
-// Streaming k-nearest-neighbour search over a candidate cloud, two forms:
+// Streaming k-nearest-neighbour search over a candidate cloud, four forms:
 //  * windowed (K4): replaces the Pallas TPU kernel
 //    lidar_visual_odometry_tpu/ops/pallas_nn.py block_topk_windowed
 //    (_block_topk_windowed_kernel). Queries and candidates are sorted by a
@@ -8,6 +8,20 @@
 //    cell, which is all the scan-to-map 1 m gates need.
 //  * dense (K5): replaces pallas_nn.py block_topk with packed=False
 //    (_block_topk_loop_kernel): the same loop with no range test.
+//  * dense with coordinates (K8): replaces pallas_nn.py block_topk_coords
+//    (_block_topk_kernel): K5, then each slot's coordinates fetched by index
+//    in place of the TPU kernel's one-hot reductions. Its rule for the
+//    distance: a slot whose distance is above 1e29 reads exactly 1e30, and a
+//    slot no candidate filled has zero coordinates.
+//  * packed (K5p): replaces pallas_nn.py block_topk with packed=True
+//    (_block_topk_packed_kernel): the running list holds one int32 key per
+//    slot, (bits(d) & ~0x7FFF) | index, ordered as an integer, so the
+//    distance is cut to its top 8 mantissa bits (2^-8 relative) and ties of
+//    the cut distance go to the lower index. Slots report d = bits(key &
+//    ~0x7FFF) and index = key & 0x7FFF; unfilled slots hold the key
+//    (bits(1e30) & ~0x7FFF) | 0x7FFF. Needs C <= 32768 (the caller checks).
+// K8 and K5p are off the product path (only the JAX package's tests and
+// scripts/profile_mapping.py call them); they run at the mapping path's shapes.
 // On the mapping path: Q 4096 queries against C 16384 (corner) and 32768
 // (surf) map points, k 5, q_tile 256, c_tile 512, two windowed launches per
 // re-association round.
@@ -38,7 +52,9 @@
 // running-before-local merge do). For K4 a lane also skips a staged chunk that
 // its own tile's range misses. At the end warp 0 merges the kSplits lists of
 // each query by (distance, index), which gives the same k pairs in any split.
-// 32 queries a block give Q / 32 = 128 blocks at the path's Q 4096.
+// 32 queries a block give Q / 32 = 128 blocks at the path's Q 4096. K8 is K5
+// with another epilogue; K5p is K5 with one int32 key in place of each
+// (distance, index) pair, inserted and merged by integer order.
 
 #include <cuda_runtime.h>
 
@@ -50,6 +66,10 @@ constexpr int kThreads = kQB * kSplits;
 constexpr int kMaxK = 8;
 constexpr int kMaxTiles = kQB;  // query tiles one block can span (q_tile >= 1)
 constexpr float kBig = 1e30f;
+constexpr float kFar = 1e29f;
+constexpr int kLowBits = 0x7FFF;  // K5p: the index bits of a packed key
+// K5p: the packed 1e30 of an unfilled slot, (bits(1e30) & ~0x7FFF) | 0x7FFF
+constexpr int kPackedSentinel = (0x7149F2CA & ~kLowBits) | kLowBits;
 
 __device__ __forceinline__ bool lex_less(float d, int i, float bd, int bi) {
   return d < bd || (d == bd && i < bi);
@@ -72,6 +92,21 @@ __device__ __forceinline__ void insert_in_order(float d, int id, float (&bd)[K],
   }
 }
 
+// Insert a packed key into an ascending list of keys (distinct but for the
+// sentinel, which no key equal to it replaces).
+template <int K>
+__device__ __forceinline__ void insert_key(int key, int (&bk)[K]) {
+  if (!(key < bk[K - 1])) return;
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {
+    if (s > 0 && key < bk[s - 1]) {
+      bk[s] = bk[s - 1];
+    } else if (key < bk[s]) {
+      bk[s] = key;
+    }
+  }
+}
+
 // Insert (d, id) into a list ordered by (distance, index).
 template <int K>
 __device__ __forceinline__ void insert_lex(float d, int id, float (&bd)[K], int (&bi)[K]) {
@@ -88,11 +123,12 @@ __device__ __forceinline__ void insert_lex(float d, int id, float (&bd)[K], int 
   }
 }
 
-template <int K>
+// Packed: bi holds the keys and bd is unused. out_i and out_c may be null.
+template <int K, bool Packed>
 __global__ void __launch_bounds__(kThreads) topk_kernel(
     const float* __restrict__ q, const int* __restrict__ q_keys,
     const float* __restrict__ c, const int* __restrict__ c_keys,
-    float* __restrict__ out_d, int* __restrict__ out_i,
+    float* __restrict__ out_d, int* __restrict__ out_i, float* __restrict__ out_c,
     int Q, int C, int q_tile, int c_tile, int reach, int windowed) {
   extern __shared__ float smem[];
   const int n_c = (C + c_tile - 1) / c_tile;
@@ -177,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) topk_kernel(
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     bd[s] = kBig;
-    bi[s] = 0;
+    bi[s] = Packed ? kPackedSentinel : 0;
   }
   for (int h0 = 0; h0 < nh; h0 += kSplits) {
     const int n_stage = min(kSplits, nh - h0);
@@ -209,7 +245,11 @@ __global__ void __launch_bounds__(kThreads) topk_kernel(
           const float dz = __fsub_rn(pz, sz[j]);
           const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                                     __fmul_rn(dz, dz));
-          insert_in_order<K>(d, base + j, bd, bi);
+          if constexpr (Packed) {
+            insert_key<K>((__float_as_int(d) & ~kLowBits) | (base + j), bi);
+          } else {
+            insert_in_order<K>(d, base + j, bd, bi);
+          }
         }
       }
     }
@@ -228,60 +268,100 @@ __global__ void __launch_bounds__(kThreads) topk_kernel(
   if (warp == 0 && q_ok) {
     for (int w = 1; w < kSplits; ++w) {
 #pragma unroll
-      for (int s = 0; s < K; ++s)
-        insert_lex<K>(md[(w * K + s) * kQB + lane], mi[(w * K + s) * kQB + lane], bd, bi);
+      for (int s = 0; s < K; ++s) {
+        if constexpr (Packed) {
+          insert_key<K>(mi[(w * K + s) * kQB + lane], bi);
+        } else {
+          insert_lex<K>(md[(w * K + s) * kQB + lane], mi[(w * K + s) * kQB + lane], bd, bi);
+        }
+      }
     }
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      out_d[static_cast<long long>(qi) * K + s] = bd[s];
-      out_i[static_cast<long long>(qi) * K + s] = bi[s];
+      const long long o = static_cast<long long>(qi) * K + s;
+      if constexpr (Packed) {
+        out_d[o] = __int_as_float(bi[s] & ~kLowBits);
+        out_i[o] = bi[s] & kLowBits;
+      } else if (out_c != nullptr) {
+        // K8: a filled slot (below the 1e30 start) takes its candidate's
+        // coordinates; its distance reads 1e30 above 1e29, as on the TPU
+        const bool filled = bd[s] < kBig;
+        out_d[o] = bd[s] > kFar ? kBig : bd[s];
+        for (int k = 0; k < 3; ++k) out_c[3 * o + k] = filled ? c[3LL * bi[s] + k] : 0.0f;
+        if (out_i != nullptr) out_i[o] = bi[s];
+      } else {
+        out_d[o] = bd[s];
+        out_i[o] = bi[s];
+      }
     }
   }
 }
 
-template <int K>
+template <int K, bool Packed>
 cudaError_t launch(const void* q, const void* q_keys, const void* c, const void* c_keys,
-                   void* out_d, void* out_i, int Q, int C, int q_tile, int c_tile,
-                   int reach, int windowed, cudaStream_t stream) {
+                   void* out_d, void* out_i, void* out_c, int Q, int C, int q_tile,
+                   int c_tile, int reach, int windowed, cudaStream_t stream) {
   const int n_c = (C + c_tile - 1) / c_tile;
   const size_t staged = sizeof(float) * 3 * kSplits * static_cast<size_t>(c_tile);
   const size_t merged = (sizeof(float) + sizeof(int)) * kSplits * K * kQB;
   const size_t smem = (staged > merged ? staged : merged) + sizeof(int) * 3 * n_c;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        topk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        topk_kernel<K, Packed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int blocks = (Q + kQB - 1) / kQB;
-  topk_kernel<K><<<blocks, kThreads, smem, stream>>>(
+  topk_kernel<K, Packed><<<blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const int*>(q_keys),
       static_cast<const float*>(c), static_cast<const int*>(c_keys),
-      static_cast<float*>(out_d), static_cast<int*>(out_i), Q, C, q_tile, c_tile, reach,
-      windowed);
+      static_cast<float*>(out_d), static_cast<int*>(out_i), static_cast<float*>(out_c), Q, C,
+      q_tile, c_tile, reach, windowed);
   return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_k(const void* q, const void* q_keys, const void* c, const void* c_keys,
+                     void* out_d, void* out_i, void* out_c, int Q, int C, int q_tile,
+                     int c_tile, int reach, int windowed, int packed, cudaStream_t stream) {
+  return packed ? launch<K, true>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile,
+                                  c_tile, reach, windowed, stream)
+                : launch<K, false>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile,
+                                   c_tile, reach, windowed, stream);
 }
 
 }  // namespace
 
 // q (Q, 3), c (C, 3) float32; q_keys (Q,), c_keys (C,) int32 (windowed only,
-// else may be null) -> out_d (Q, k) float32, out_i (Q, k) int32.
+// else may be null) -> out_d (Q, k) float32, out_i (Q, k) int32 and, for K8,
+// out_c (Q, k, 3) float32 (else null; with it out_i may be null).
 // windowed: Q % q_tile == 0 and C % c_tile == 0 (the caller checks); dense:
-// any Q and C, q_tile unused.
+// any Q and C, q_tile unused. packed (K5p): dense, out_c null, C <= 32768.
 extern "C" int lvo_block_topk(const void* q, const void* q_keys, const void* c,
-                              const void* c_keys, void* out_d, void* out_i, int Q, int C,
-                              int k, int q_tile, int c_tile, int reach, int windowed,
-                              void* stream) {
+                              const void* c_keys, void* out_d, void* out_i, void* out_c,
+                              int Q, int C, int k, int q_tile, int c_tile, int reach,
+                              int windowed, int packed, void* stream) {
   if (Q <= 0 || C <= 0 || q_tile <= 0 || c_tile <= 0 || k < 1 || k > kMaxK)
     return cudaErrorInvalidValue;
+  if ((out_i == nullptr && out_c == nullptr) ||
+      (packed && (windowed || out_c != nullptr || out_i == nullptr || C > kLowBits + 1)) ||
+      (windowed && out_c != nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LVO_TOPK_CASE(K)                                                                  \
+  case K:                                                                                \
+    return launch_k<K>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile, c_tile, \
+                       reach, windowed, packed, s);
   switch (k) {
-    case 1: return launch<1>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
-    case 2: return launch<2>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
-    case 3: return launch<3>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
-    case 4: return launch<4>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
-    case 5: return launch<5>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
-    case 6: return launch<6>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
-    case 7: return launch<7>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
-    default: return launch<8>(q, q_keys, c, c_keys, out_d, out_i, Q, C, q_tile, c_tile, reach, windowed, s);
+    LVO_TOPK_CASE(1)
+    LVO_TOPK_CASE(2)
+    LVO_TOPK_CASE(3)
+    LVO_TOPK_CASE(4)
+    LVO_TOPK_CASE(5)
+    LVO_TOPK_CASE(6)
+    LVO_TOPK_CASE(7)
+    default: return launch_k<8>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile,
+                                c_tile, reach, windowed, packed, s);
   }
+#undef LVO_TOPK_CASE
 }

@@ -4,10 +4,11 @@ One module per TPU kernel it replaces:
 
 * ``segsum`` — ``ops/pallas_segsum.py`` ``segment_sum_batched`` and its flat
   ``segment_sum`` (K1)
-* ``nn``     — ``ops/pallas_nn.py`` ``associate_kernel`` (K2)
+* ``nn``     — ``ops/pallas_nn.py`` ``associate_kernel`` (K2) and
+  ``ring_top2_pallas`` / ``ring_top2_coords`` (K7)
 * ``gn``     — ``ops/pallas_gn.py`` ``gn_inner_loop`` (K3)
-* ``topk``   — ``ops/pallas_nn.py`` ``block_topk_windowed`` (K4) and
-  ``block_topk`` (K5)
+* ``topk``   — ``ops/pallas_nn.py`` ``block_topk_windowed`` (K4),
+  ``block_topk`` (K5; K5p with ``packed=True``) and ``block_topk_coords`` (K8)
 * ``lk``     — ``ops/pallas_lk.py`` ``lk_level`` (K6)
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
@@ -27,6 +28,10 @@ _COUNTERS = {
     "gn_inner_loop": (gn, "launches"),
     "block_topk_windowed": (topk, "windowed_launches"),
     "block_topk": (topk, "launches"),
+    "block_topk_packed": (topk, "packed_launches"),
+    "block_topk_coords": (topk, "coords_launches"),
+    "ring_top2_pallas": (nn, "ring_top2_launches"),
+    "ring_top2_coords": (nn, "ring_top2_coords_launches"),
     "lk_level": (lk, "launches"),
 }
 

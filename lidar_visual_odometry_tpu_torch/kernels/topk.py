@@ -1,6 +1,6 @@
-"""K4 and K5: streaming k-nearest neighbours, the counterparts of
-``ops/pallas_nn.py`` ``block_topk_windowed`` and ``block_topk`` (its default,
-unpacked form).
+"""K4, K5, K5p and K8: streaming k-nearest neighbours, the counterparts of
+``ops/pallas_nn.py`` ``block_topk_windowed`` (K4), ``block_topk`` (K5, and
+K5p with ``packed=True``) and ``block_topk_coords`` (K8).
 
 ``block_topk_windowed(q, q_keys, c_sorted, c_keys)`` and ``block_topk(q,
 c_baked)`` return ``(dist (Q, k), index (Q, k))``: per query the k smallest
@@ -15,10 +15,29 @@ key in the tile). It is exact for every neighbour within one cell; beyond
 that a slot may hold the sentinel. ``cell_keys`` and ``sort_by_cell`` build
 its inputs.
 
+``block_topk_coords(q, c_baked)`` returns ``(dist (Q, k), coords (Q, k, 3))``:
+K5's slots with their candidates' coordinates; a distance above 1e29 reads
+exactly 1e30, and a slot no candidate filled has zero coordinates.
+
+``block_topk(q, c_baked, packed=True)`` orders by the int32 key
+``(bits(d) & ~0x7FFF) | index``: the distance cut to 2⁻⁸ relative, ties of
+the cut distance to the lower index. It returns the cut distance
+``bits(key & ~0x7FFF)`` and ``key & 0x7FFF``; an unfilled slot holds the key
+``PACKED_SENTINEL``. The index must fit the 15 low bits: with C > 32768 the
+call is the unpacked one (K5, launched and counted as K5), as in the
+reference.
+
+The TPU kernels' ``q_tile`` and ``c_tile`` of the dense forms (and their
+divisibility asserts) do not change the result and are not taken. (One
+exception, a degenerate input: with fewer candidates than k in several chunks
+the TPU's K8 may leave a real candidate's coordinates in an unfilled slot, and
+its K5p returns INT_MAX keys, NaN distances, from the second unfilled slot on;
+the port's unfilled slots are zero and ``PACKED_SENTINEL``.)
+
 A CUDA tensor goes to the hand-written kernel ``csrc/topk.cu``; a CPU tensor
 goes to the plain version (``block_topk_windowed_plain`` applies the same
 (tile, chunk) rule, so the two agree element by element). Each wrapper counts
-its own launches.
+its own launches, K5p apart from K5.
 """
 
 from __future__ import annotations
@@ -32,7 +51,13 @@ from . import _build
 from .nn import bake_mask
 
 _BIG = 1e30
+_FAR = float(np.float32(1e29))   # K8: a slot's distance above this reads 1e30
 _IMAX = 2**31 - 1
+_LOW = 0x7FFF                    # K5p: the index bits of a packed key
+#: K5p: the key of a slot no candidate filled, a packed 1e30
+PACKED_SENTINEL = int((np.float32(1e30).view(np.int32) & ~_LOW) | _LOW)
+#: K5p: the most candidates a packed key can index
+PACKED_MAX_C = _LOW + 1
 _Q_BLOCK = 256  # plain dense version: queries per distance block
 DENSE_CHUNK = 512  # the dense kernel's candidates per shared-memory stage
 
@@ -40,6 +65,10 @@ DENSE_CHUNK = 512  # the dense kernel's candidates per shared-memory stage
 launches = 0
 #: launches of the CUDA kernel by ``block_topk_windowed`` since the last reset
 windowed_launches = 0
+#: launches of the CUDA kernel by ``block_topk(packed=True)`` since the last reset
+packed_launches = 0
+#: launches of the CUDA kernel by ``block_topk_coords`` since the last reset
+coords_launches = 0
 
 
 def cell_keys(xyz: torch.Tensor, origin: torch.Tensor, *, cell: float,
@@ -108,6 +137,32 @@ def block_topk_plain(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5):
     return torch.cat(ds), torch.cat(ii)
 
 
+def block_topk_coords_plain(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5):
+    """Plain PyTorch version of ``block_topk_coords``: the dense search, then
+    the coordinates by index."""
+    d, idx = block_topk_plain(q_xyz, c_baked, k=k)
+    filled = (d < _BIG)[..., None]
+    coords = torch.where(filled, c_baked[idx.long()], torch.zeros((), device=d.device))
+    return torch.where(d > _FAR, torch.full_like(d, _BIG), d), coords
+
+
+def block_topk_packed_plain(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5):
+    """Plain PyTorch version of ``block_topk(packed=True)`` (C ≤ 32768): the k
+    smallest packed keys of each query, k sentinels standing in for unfilled
+    slots."""
+    cand = torch.arange(c_baked.shape[0], dtype=torch.int32, device=q_xyz.device)
+    ds, ii = [], []
+    for i in range(0, q_xyz.shape[0], _Q_BLOCK):
+        d = _sqdist(q_xyz[i:i + _Q_BLOCK], c_baked)
+        keys = (d.view(torch.int32) & ~_LOW) | cand
+        keys = torch.cat([keys, torch.full((d.shape[0], k), PACKED_SENTINEL, dtype=torch.int32,
+                                           device=d.device)], 1)
+        keys = torch.sort(keys, dim=1).values[:, :k]
+        ds.append((keys & ~_LOW).view(torch.float32))
+        ii.append(keys & _LOW)
+    return torch.cat(ds), torch.cat(ii)
+
+
 def chunk_hits(q_keys: torch.Tensor, c_keys: torch.Tensor, *, q_tile: int, c_tile: int,
                grid_w: int) -> torch.Tensor:
     """(Q / q_tile, C / c_tile) bool: which candidate chunks each query tile
@@ -137,7 +192,8 @@ def block_topk_windowed_plain(q_xyz, q_keys, c_sorted, c_keys, *, k: int = 5,
     return torch.cat(ds), torch.cat(ii)
 
 
-def _launch(name, q_xyz, q_keys, c, c_keys, k, q_tile, c_tile, reach, windowed):
+def _launch(name, q_xyz, q_keys, c, c_keys, k, q_tile, c_tile, reach, windowed, packed=False,
+            coords=False):
     tensors = (q_xyz, c) + ((q_keys, c_keys) if windowed else ())
     for t in tensors:
         if t.device != q_xyz.device or t.device.type != "cuda":
@@ -153,16 +209,21 @@ def _launch(name, q_xyz, q_keys, c, c_keys, k, q_tile, c_tile, reach, windowed):
     Q, C = q_xyz.shape[0], c.shape[0]
     lib = _build.load("topk")
     fn = lib.lvo_block_topk
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     d = torch.empty((Q, k), dtype=torch.float32, device=q_xyz.device)
-    idx = torch.empty((Q, k), dtype=torch.int32, device=q_xyz.device)
+    if coords:
+        out = torch.empty((Q, k, 3), dtype=torch.float32, device=q_xyz.device)
+        ptrs = (None, out.data_ptr())
+    else:
+        out = torch.empty((Q, k), dtype=torch.int32, device=q_xyz.device)
+        ptrs = (out.data_ptr(), None)
     rc = fn(q_xyz.data_ptr(), q_keys.data_ptr() if windowed else None, c.data_ptr(),
-            c_keys.data_ptr() if windowed else None, d.data_ptr(), idx.data_ptr(),
-            Q, C, k, q_tile, c_tile, reach, int(windowed),
+            c_keys.data_ptr() if windowed else None, d.data_ptr(), *ptrs,
+            Q, C, k, q_tile, c_tile, reach, int(windowed), int(packed),
             torch.cuda.current_stream(q_xyz.device).cuda_stream)
     _build.check(rc, name)
-    return d, idx
+    return d, out
 
 
 def _check_points(name, q_xyz, c):
@@ -194,15 +255,34 @@ def block_topk_windowed(q_xyz: torch.Tensor, q_keys: torch.Tensor, c_sorted: tor
     return out
 
 
-def block_topk(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5):
+def block_topk(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5,
+               packed: bool = False):
     """Dense k-NN: (dist (Q, k), index (Q, k)) into ``c_baked`` (C, 3), masked
-    points baked to BAKE_FAR. Any Q and C. (The TPU kernel's query tile and
-    candidate chunk do not change the result; the card stages candidates in
-    chunks of ``DENSE_CHUNK``.)"""
+    points baked to BAKE_FAR. Any Q and C. ``packed=True`` orders by the
+    packed key (module note) when C ≤ 32768 and is ignored above. (The card
+    stages candidates in chunks of ``DENSE_CHUNK``.)"""
     _check_points("block_topk", q_xyz, c_baked)
+    packed = packed and c_baked.shape[0] <= PACKED_MAX_C   # the index must fit 15 bits
     if q_xyz.device.type == "cpu":
-        return block_topk_plain(q_xyz, c_baked, k=k)
-    global launches
-    out = _launch("block_topk", q_xyz, None, c_baked, None, k, 1, DENSE_CHUNK, 0, False)
-    launches += 1
+        return (block_topk_packed_plain if packed else block_topk_plain)(q_xyz, c_baked, k=k)
+    global launches, packed_launches
+    out = _launch("block_topk", q_xyz, None, c_baked, None, k, 1, DENSE_CHUNK, 0, False,
+                  packed=packed)
+    if packed:
+        packed_launches += 1
+    else:
+        launches += 1
+    return out
+
+
+def block_topk_coords(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5):
+    """Dense k-NN with coordinates: (dist (Q, k), coords (Q, k, 3)) from
+    ``c_baked`` (C, 3), masked points baked to BAKE_FAR. Any Q and C."""
+    _check_points("block_topk_coords", q_xyz, c_baked)
+    if q_xyz.device.type == "cpu":
+        return block_topk_coords_plain(q_xyz, c_baked, k=k)
+    global coords_launches
+    out = _launch("block_topk_coords", q_xyz, None, c_baked, None, k, 1, DENSE_CHUNK, 0, False,
+                  coords=True)
+    coords_launches += 1
     return out

@@ -126,6 +126,56 @@ def test_associate_matches_plain(dev, gen, B):
                                knn_k.associate_kernel_plain(q, baked), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B", [120, 512, 1])
+def test_ring_top2_matches_plain(dev, gen, B):
+    """K7, both output forms: K2's distances and tie rules, so identical."""
+    c, m, q = _on(dev, gen.normal(size=(64, B, 3)).astype(np.float32) * 8,
+                  gen.uniform(size=(64, B)) > 0.2,
+                  gen.normal(size=(1536, 3)).astype(np.float32) * 8)
+    baked = knn_k.bake_mask(c, m).contiguous()
+    kernels.reset_launch_counts()
+    d, i = knn_k.ring_top2_pallas(q, baked)
+    dc, c1, c2 = knn_k.ring_top2_coords(q, baked)
+    counts = kernels.launch_counts()
+    assert counts["ring_top2_pallas"] == 1 and counts["ring_top2_coords"] == 1
+    assert counts["associate_kernel"] == 0
+    dp, ip = knn_k.ring_top2_pallas_plain(q, baked)
+    _, c1p, c2p = knn_k.ring_top2_coords_plain(q, baked)
+    for got, want in ((d, dp), (i, ip), (dc, dp), (c1, c1p), (c2, c2p)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("Q,C,k", [(4096, 32768, 5), (1000, 777, 3), (64, 3, 5)])
+def test_block_topk_coords_and_packed_match_plain(dev, gen, Q, C, k):
+    """K8 and K5p: K5's loop with another epilogue or a packed key, so
+    identical to their plain versions (C 3 < k: the unfilled-slot rules)."""
+    q, c = _on(dev, gen.normal(size=(Q, 3)).astype(np.float32) * 20,
+               gen.normal(size=(C, 3)).astype(np.float32) * 20)
+    baked = knn_k.bake_mask(c, torch.from_numpy(gen.uniform(size=C) > 0.3).to(dev)).contiguous()
+    kernels.reset_launch_counts()
+    d, co = ktop.block_topk_coords(q, baked, k=k)
+    dk, ik = ktop.block_topk(q, baked, k=k, packed=True)
+    counts = kernels.launch_counts()
+    assert counts["block_topk_coords"] == 1 and counts["block_topk_packed"] == 1
+    assert counts["block_topk"] == 0
+    dp, cop = ktop.block_topk_coords_plain(q, baked, k=k)
+    dkp, ikp = ktop.block_topk_packed_plain(q, baked, k=k)
+    for got, want in ((d, dp), (co, cop), (dk, dkp), (ik, ikp)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_block_topk_packed_above_32768_launches_k5(dev, gen):
+    q, c = _on(dev, gen.normal(size=(256, 3)).astype(np.float32) * 20,
+               gen.normal(size=(32769, 3)).astype(np.float32) * 20)
+    kernels.reset_launch_counts()
+    d, i = ktop.block_topk(q, c, k=5, packed=True)
+    counts = kernels.launch_counts()
+    assert counts["block_topk"] == 1 and counts["block_topk_packed"] == 0
+    dp, ip = ktop.block_topk_plain(q, c, k=5)
+    torch.testing.assert_close(d, dp, rtol=0, atol=0)
+    torch.testing.assert_close(i, ip, rtol=0, atol=0)
+
+
 def test_gn_inner_loop_matches_plain(dev, gen):
     ne, npl = 768, 1536
     pts = [gen.uniform(-10, 10, (3, n)).astype(np.float32) for n in (ne,) * 3 + (npl,) * 4]
@@ -213,6 +263,14 @@ def test_wrappers_reject_bad_input(dev):
         ktop.block_topk_windowed(pts[:100], keys[:100], pts, keys, q_tile=64)
     with pytest.raises(TypeError):
         ktop.block_topk(pts.double(), pts.double())
+    with pytest.raises(TypeError):
+        ktop.block_topk(pts.double(), pts.double(), packed=True)
+    with pytest.raises(ValueError):
+        ktop.block_topk_coords(pts, pts.T)
+    with pytest.raises(ValueError):
+        knn_k.ring_top2_pallas(pts[:4], torch.zeros((2, 5, 3), device=dev).transpose(0, 1))
+    with pytest.raises(ValueError):
+        knn_k.ring_top2_coords(pts[:4], torch.zeros((2, 5, 3)))
     img = torch.zeros((48, 160), device=dev)
     uv = torch.zeros((8, 2), device=dev)
     with pytest.raises(ValueError):

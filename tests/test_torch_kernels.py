@@ -19,6 +19,7 @@ from lidar_visual_odometry_tpu_torch.kernels import gn as kgn
 from lidar_visual_odometry_tpu_torch.kernels import lk as klk
 from lidar_visual_odometry_tpu_torch.kernels import nn as knn_k
 from lidar_visual_odometry_tpu_torch.kernels import segsum as kseg
+from lidar_visual_odometry_tpu_torch.kernels import topk as ktop
 
 torch.set_num_threads(2)
 
@@ -58,9 +59,16 @@ def test_cpu_tensors_never_launch():
     kseg.segment_sum(torch.zeros(8, dtype=torch.int32), torch.ones((4, 8)), n_segments=3)
     img = torch.rand((24, 40))
     klk.lk_level(img, img, torch.full((8, 2), 12.0), torch.zeros((8, 2)), win=9)
+    pts, blocks = torch.rand((16, 3)), torch.rand((4, 8, 3))
+    knn_k.ring_top2_pallas(pts, blocks)
+    knn_k.ring_top2_coords(pts, blocks)
+    ktop.block_topk(pts, pts, k=3, packed=True)
+    ktop.block_topk_coords(pts, pts, k=3)
     assert kernels.launch_counts() == {
         "segment_sum_batched": 0, "segment_sum": 0, "associate_kernel": 0,
-        "gn_inner_loop": 0, "block_topk_windowed": 0, "block_topk": 0, "lk_level": 0,
+        "gn_inner_loop": 0, "block_topk_windowed": 0, "block_topk": 0,
+        "block_topk_packed": 0, "block_topk_coords": 0, "ring_top2_pallas": 0,
+        "ring_top2_coords": 0, "lk_level": 0,
     }
 
 

@@ -133,7 +133,8 @@ def test_run_chunked_ragged_chunk_and_polar(seq_scans):
 
 def test_port_imports_no_jax():
     """The port imports torch and numpy only: no jax, nothing of the JAX
-    package."""
+    package, with every module imported, the k-NN entry points of kernels
+    K7, K8 and K5p among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import lidar_visual_odometry_tpu_torch as p\n"
@@ -144,6 +145,14 @@ def test_port_imports_no_jax():
         "       or m == 'lidar_visual_odometry_tpu'\n"
         "       or m.startswith('lidar_visual_odometry_tpu.')]\n"
         "assert not bad, bad\n"
+        "from lidar_visual_odometry_tpu_torch.kernels import nn, topk\n"
+        "from lidar_visual_odometry_tpu_torch.ops import knn\n"
+        "for mod, names in ((nn, ('ring_top2_pallas', 'ring_top2_coords')),\n"
+        "                   (topk, ('block_topk', 'block_topk_coords')),\n"
+        "                   (knn, ('ring_top2_best', 'associate_edges_ringblocked',\n"
+        "                          'associate_planes_ringblocked', 'associate_edges',\n"
+        "                          'associate_planes', '_ring_top2_with_coords'))):\n"
+        "    assert all(callable(getattr(mod, n)) for n in names), mod\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

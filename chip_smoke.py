@@ -18,7 +18,12 @@ Phase 1  holds each kernel against its plain PyTorch version on the card, at
          frame-9 features as queries, so the windowed kernel's skip share is
          the path's own; K7 associates frame 9's features with frame 8's; K6
          tracks the features the path seeds on frame 0's image into frame
-         1's, level by level as the path does.
+         1's, level by level as the path does. K1's two forms must also give
+         ``segment_sum_run_order``'s sums bit for bit on sorted ids (the
+         path's, a row all in the overflow bucket, runs of up to 1000
+         points); they are timed before these checks, each in alternating
+         rounds with ``index_add_`` (the median round of each), so that both
+         sides are timed in one state of the host.
 Phase 2  drives the odometry path at full width: ``OdometryPipeline(SystemConfig(),
          device="cuda").run_chunked(scans, chunk=8, ingest="polar2")`` on the
          48-frame synthetic HDL-64 corridor (64 rings x 2048 azimuth bins), one
@@ -133,6 +138,61 @@ def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _time_alternating_ms(fns, iters: int, rounds: int = 5) -> list[float]:
+    """``_time_ms`` of each of ``fns`` in ``rounds`` alternating rounds: the
+    median round of each. Calls whose time is mostly host time move with the
+    host's state; alternating gives each the same states."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(_time_ms(fn, iters))
+    return [float(np.median(t)) for t in times]
+
+
+def _segsum_checks(form, seg_t, vals_t, S, rng, dev):
+    """Hold one K1 form on the path-like ids (``seg_t``, sorted), on a row
+    all in the overflow bucket and on long runs to ``segment_sum_run_order``
+    bit for bit, and on the path-like ids and on ids in no order to the plain
+    version within rtol 1e-5, atol 1e-3 (the same values summed in another
+    order: the plain version adds with atomics on the card; the long sums of
+    the extra cases are held to the ordered sums alone, since an atomic
+    order's rounding over thousands of terms exceeds that tolerance).
+    Returns the largest difference from the plain version."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import segsum
+
+    kernel = segsum.segment_sum_batched if form == "batched" else segsum.segment_sum
+    plain = segsum.segment_sum_batched_plain if form == "batched" else segsum.segment_sum_plain
+    W = seg_t.shape[-1]
+    lengths = np.tile([3, 33, 1, 300, 7, 1000, 2], -(-W // 1346))
+    long_runs = np.minimum(np.repeat(np.arange(len(lengths)), lengths)[:W], S - 1)
+    sorted_cases = {
+        "path": seg_t,
+        "all bucket": torch.full_like(seg_t, S - 1),
+        "long runs": torch.from_numpy(long_runs.astype(np.int32)).to(dev).expand_as(seg_t).contiguous(),
+    }
+    for case, ids in sorted_cases.items():
+        out = kernel(ids, vals_t, n_segments=S)
+        want = segsum.segment_sum_run_order(ids, vals_t, n_segments=S)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"{form} segment sum ({case}) differs from the ordered sums "
+                                 f"by {float((out - want).abs().max())}")
+    out = kernel(seg_t, vals_t, n_segments=S)
+    ref = plain(seg_t, vals_t, n_segments=S)
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-3):
+        raise AssertionError(f"{form} segment sum disagrees with its plain version: {err}")
+    ids = torch.from_numpy(rng.integers(-1, S + 1, tuple(seg_t.shape)).astype(np.int32)).to(dev)
+    out = kernel(ids, vals_t, n_segments=S)
+    ref = plain(ids, vals_t, n_segments=S)
+    err = max(err, float((out - ref).abs().max()))
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-3):
+        raise AssertionError(f"{form} segment sum (unsorted ids) disagrees: {err}")
+    return err
+
+
 def phase1_segsum(rng, dev):
     import torch
 
@@ -150,35 +210,20 @@ def phase1_segsum(rng, dev):
         vals[r, :, n_valid:] = 0.0
     seg_t = torch.from_numpy(seg).to(dev)
     vals_t = torch.from_numpy(vals).to(dev)
-    out = segsum.segment_sum_batched(seg_t, vals_t, n_segments=S)
-    ref = segsum.segment_sum_batched_plain(seg_t, vals_t, n_segments=S)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    # float32 sums of the same values in another order (the plain version
-    # adds with atomics on the card): |diff| <= 1e-3 + 1e-5 |ref|
-    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-3):
-        raise AssertionError(f"segment_sum_batched disagrees with its plain version: {err}")
-
-    # rows in no order take the kernel's general path
-    seg_u = torch.from_numpy(rng.integers(0, S, (R, W)).astype(np.int32)).to(dev)
-    out_u = segsum.segment_sum_batched(seg_u, vals_t, n_segments=S)
-    ref_u = segsum.segment_sum_batched_plain(seg_u, vals_t, n_segments=S)
-    err = max(err, float((out_u - ref_u).abs().max()))
-    if not torch.allclose(out_u, ref_u, rtol=1e-5, atol=1e-3):
-        raise AssertionError(f"segment_sum_batched (unsorted ids) disagrees: {err}")
-
     flat_ids = (seg_t.to(torch.int64) + S * torch.arange(R, device=dev)[:, None]).reshape(-1)
     vals_rows = vals_t.permute(0, 2, 1).reshape(R * W, C).contiguous()
 
     def library():
         return torch.zeros((R * S, C), device=dev).index_add_(0, flat_ids, vals_rows)
 
+    ms, library_ms = _time_alternating_ms(
+        (lambda: segsum.segment_sum_batched(seg_t, vals_t, n_segments=S), library), 200)
+    plain_ms = _time_ms(lambda: segsum.segment_sum_batched_plain(seg_t, vals_t, n_segments=S), 200)
+    err = _segsum_checks("batched", seg_t, vals_t, S, rng, dev)
+    ref = segsum.segment_sum_batched_plain(seg_t, vals_t, n_segments=S)
     lib_out = library().reshape(R, S, C).permute(0, 2, 1)
     if not torch.allclose(lib_out, ref, rtol=1e-5, atol=1e-3):
         raise AssertionError("index_add_ yardstick disagrees with the plain version")
-    ms = _time_ms(lambda: segsum.segment_sum_batched(seg_t, vals_t, n_segments=S), 200)
-    plain_ms = _time_ms(lambda: segsum.segment_sum_batched_plain(seg_t, vals_t, n_segments=S), 200)
-    library_ms = _time_ms(library, 200)
     bound, by = _bound_ms(4 * (R * W + R * C * W + R * C * S), R * C * W)
     return dict(
         name="segment_sum_batched", route="cuda",
@@ -187,7 +232,7 @@ def phase1_segsum(rng, dev):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=library_ms,
         shapes=f"seg ({R},{W}) i32, vals ({R},{C},{W}) f32, S={S}",
-        tolerance="rtol 1e-5, atol 1e-3",
+        tolerance="sorted ids: the ordered sums bit for bit; all: rtol 1e-5, atol 1e-3",
     )
 
 
@@ -333,26 +378,21 @@ def phase1_flat_segsum(rng, dev):
         vals[:, n_valid:] = 0.0
         seg_t = torch.from_numpy(seg).to(dev)
         vals_t = torch.from_numpy(vals).to(dev)
-        out = segsum.segment_sum(seg_t, vals_t, n_segments=S)
-        ref = segsum.segment_sum_plain(seg_t, vals_t, n_segments=S)
-        torch.cuda.synchronize()
-        e = float((out - ref).abs().max())
-        # float32 sums of the same values in another order (rows, then the
-        # row partials; the plain version adds with atomics): rtol 1e-5, atol 1e-3
-        if not torch.allclose(out, ref, rtol=1e-5, atol=1e-3):
-            raise AssertionError(f"segment_sum disagrees with its plain version at W={W}: {e}")
-        err = max(err, e)
         ids = seg_t.to(torch.int64)
         vals_rows = vals_t.T.contiguous()
 
         def library():
             return torch.zeros((S, C), device=dev).index_add_(0, ids, vals_rows)
 
+        k_ms, lib_ms = _time_alternating_ms(
+            (lambda: segsum.segment_sum(seg_t, vals_t, n_segments=S), library), 200)
+        ms += k_ms
+        library_ms += lib_ms
+        plain_ms += _time_ms(lambda: segsum.segment_sum_plain(seg_t, vals_t, n_segments=S), 200)
+        err = max(err, _segsum_checks("flat", seg_t, vals_t, S, rng, dev))
+        ref = segsum.segment_sum_plain(seg_t, vals_t, n_segments=S)
         if not torch.allclose(library().T, ref, rtol=1e-5, atol=1e-3):
             raise AssertionError("index_add_ yardstick disagrees with the plain version")
-        ms += _time_ms(lambda: segsum.segment_sum(seg_t, vals_t, n_segments=S), 200)
-        plain_ms += _time_ms(lambda: segsum.segment_sum_plain(seg_t, vals_t, n_segments=S), 200)
-        library_ms += _time_ms(library, 200)
         n_bytes += 4 * (W + C * W + C * S)
         n_ops += C * W
         shapes.append(f"W={W}")
@@ -364,7 +404,7 @@ def phase1_flat_segsum(rng, dev):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=library_ms,
         shapes="seg (W,) i32, vals (4, W), S=4097, both mapping filters: " + ", ".join(shapes),
-        tolerance="rtol 1e-5, atol 1e-3",
+        tolerance="sorted ids: the ordered sums bit for bit; all: rtol 1e-5, atol 1e-3",
     )
 
 

@@ -36,44 +36,153 @@ def _on(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
+def _voxel_rows(gen, R, W, S, n_valid, p_new):
+    """Ids as the voxel filters produce them: non-decreasing run ids (a new
+    voxel with probability ``p_new`` a point) for ``n_valid`` points, then the
+    overflow bucket S - 1 for the rest, whose values are zero."""
+    seg = np.full((R, W), S - 1, np.int32)
+    vals = gen.normal(scale=30.0, size=(R, 4, W)).astype(np.float32)
+    for r in range(R):
+        n = int(n_valid[r]) if np.ndim(n_valid) else n_valid
+        seg[r, :n] = np.minimum(np.cumsum(gen.uniform(size=n) < p_new), S - 1)
+        vals[r, :, n:] = 0.0
+    return seg, vals
+
+
+def _sum(seg, vals, S):
+    """One kernel call of the form the shapes ask for, with its launch count."""
+    kernels.reset_launch_counts()
+    if seg.dim() == 1:
+        got = kseg.segment_sum(seg, vals, n_segments=S)
+        counts = kernels.launch_counts()
+        assert counts["segment_sum"] == 1 and counts["segment_sum_batched"] == 0
+    else:
+        got = kseg.segment_sum_batched(seg, vals, n_segments=S)
+        counts = kernels.launch_counts()
+        assert counts["segment_sum_batched"] == 1 and counts["segment_sum"] == 0
+    return got
+
+
+def _equal_run_order(seg, vals, S):
+    got = _sum(seg, vals, S)
+    torch.testing.assert_close(got, kseg.segment_sum_run_order(seg, vals, n_segments=S),
+                               rtol=0, atol=0)
+    return got
+
+
+def _close_to_plain(seg, vals, S, atol=1e-3):
+    """Ids in no order: the kernel adds in ascending w, the plain version with
+    atomics on the card. The same values in another order: rtol 1e-5, atol
+    1e-3 for sums of up to W values of |v| ≲ 100, 1e-4 for |v| ≲ 4."""
+    got = _sum(seg, vals, S)
+    plain = (kseg.segment_sum_plain if seg.dim() == 1 else kseg.segment_sum_batched_plain)
+    torch.testing.assert_close(got, plain(seg, vals, n_segments=S), rtol=1e-5, atol=atol)
+    return got
+
+
 @pytest.mark.parametrize("sorted_ids", [True, False])
 def test_segment_sum_matches_plain(dev, gen, sorted_ids):
+    """The per-ring filter's shapes: sorted ids give the ordered sums bit for
+    bit, ids in no order the plain version's within rounding."""
     seg = gen.integers(0, 513, (64, 2048))
     if sorted_ids:
         seg = np.sort(seg, axis=1)
     seg, vals = _on(dev, seg.astype(np.int32),
                     gen.normal(size=(64, 4, 2048)).astype(np.float32))
-    kernels.reset_launch_counts()
-    got = kseg.segment_sum_batched(seg, vals, n_segments=513)
-    assert kernels.launch_counts()["segment_sum_batched"] == 1
-    # sums of the same values in another fixed order (the plain version adds
-    # with atomics on the card): rtol 1e-5, atol 1e-4 for |v| ≲ 4
-    torch.testing.assert_close(got, kseg.segment_sum_batched_plain(seg, vals, n_segments=513),
-                               rtol=1e-5, atol=1e-4)
+    if sorted_ids:
+        _equal_run_order(seg, vals, 513)
+    else:
+        _close_to_plain(seg, vals, 513, atol=1e-4)   # values of normal scale 1
 
 
 @pytest.mark.parametrize("W", [32768, 7680, 100])
 def test_flat_segment_sum_matches_plain(dev, gen, W):
-    """The mapping voxel filter's flat sum: non-decreasing run ids with the
-    masked points (zero values) in the overflow bucket S - 1, and ids in no
-    order."""
+    """The mapping voxel filter's flat sum at S 4097, one launch a call:
+    non-decreasing run ids with the masked points in the overflow bucket give
+    the ordered sums bit for bit, ids in no order (some out of range) the
+    plain version's within rounding."""
     S = 4097
-    n_valid = W * 3 // 4
-    seg = np.full(W, S - 1, np.int32)
-    seg[:n_valid] = np.minimum(np.cumsum(gen.uniform(size=n_valid) < 0.4), S - 1)
-    vals = gen.normal(scale=30.0, size=(4, W)).astype(np.float32)
-    vals[:, n_valid:] = 0.0             # masked points carry zeros, as on the path
-    for ids in (seg, gen.integers(-1, S + 1, W).astype(np.int32)):
-        ids_t, vals_t = _on(dev, ids, vals)
-        kernels.reset_launch_counts()
-        got = kseg.segment_sum(ids_t, vals_t, n_segments=S)
-        counts = kernels.launch_counts()
-        assert counts["segment_sum"] == 1 and counts["segment_sum_batched"] == 0
-        # the same values summed per row of 2048 points and then over rows,
-        # against one scatter-add (atomics on the card): rtol 1e-5, atol 1e-3
-        # for sums of up to W values of |v| ≲ 100
-        torch.testing.assert_close(got, kseg.segment_sum_plain(ids_t, vals_t, n_segments=S),
-                                   rtol=1e-5, atol=1e-3)
+    seg, vals = _voxel_rows(gen, 1, W, S, W * 3 // 4, 0.4)
+    seg_t, vals_t = _on(dev, seg[0], vals[0])
+    _equal_run_order(seg_t, vals_t, S)
+    ids = _on(dev, gen.integers(-1, S + 1, W).astype(np.int32))[0]
+    _close_to_plain(ids, vals_t, S)
+
+
+@pytest.mark.parametrize("form", ["batched", "flat_less_flat", "flat_less_sharp"])
+def test_segment_sum_path_shapes_equal_run_order(dev, gen, form):
+    """The path's own shapes and run lengths: the per-ring filter (64 rows of
+    2048 points, 800-1800 valid, S 513) and the two mapping filters (W 32768
+    with 16000 valid at 15% new voxels, W 7680 with 5000 at 60%, S 4097)."""
+    if form == "batched":
+        seg, vals = _voxel_rows(gen, 64, 2048, 513, gen.integers(800, 1800, 64), 0.4)
+        _equal_run_order(*_on(dev, seg, vals), 513)
+        return
+    W, n_valid, p_new = (32768, 16000, 0.15) if form == "flat_less_flat" else (7680, 5000, 0.6)
+    seg, vals = _voxel_rows(gen, 1, W, 4097, n_valid, p_new)
+    _equal_run_order(*_on(dev, seg[0], vals[0]), 4097)
+
+
+@pytest.mark.parametrize("case", ["all_bucket", "long_runs", "out_of_range", "ragged_S"])
+@pytest.mark.parametrize("flat", [False, True])
+def test_segment_sum_edge_cases_equal_run_order(dev, gen, case, flat):
+    """all_bucket: every point in the overflow bucket; long_runs: runs of 33
+    points (one past a thread's share), 300 (longer than a block's 256
+    threads) and 5000 (across the flat form's 2048-point cuts), around short
+    runs; out_of_range: sorted ids
+    from -3 to S + 3, the ones outside [0, S) dropped; ragged_S: S 50, not a
+    multiple of the block's 32 segments, with runs on every segment-tile
+    boundary."""
+    R, W, S = (1, 8192, 4097) if flat else (8, 8192, 513)
+    vals = gen.normal(scale=30.0, size=(R, 4, W)).astype(np.float32)
+    if case == "all_bucket":
+        seg = np.full((R, W), S - 1, np.int32)
+    elif case == "long_runs":
+        lengths = np.tile([3, 33, 1, 300, 7, 5000, 2], 4)
+        seg = np.repeat(np.arange(len(lengths)), lengths)[:W]
+        seg = np.broadcast_to(np.pad(seg, (0, W - len(seg)), constant_values=S - 1), (R, W))
+    elif case == "out_of_range":
+        seg = np.sort(gen.integers(-3, S + 3, (R, W)), axis=1)
+    else:
+        S = 50
+        seg = np.sort(gen.integers(0, S, (R, W)), axis=1)
+    seg_t, vals_t = _on(dev, np.ascontiguousarray(seg, dtype=np.int32), vals)
+    if flat:
+        seg_t, vals_t = seg_t[0].contiguous(), vals_t[0].contiguous()
+    _equal_run_order(seg_t, vals_t, S)
+
+
+def test_segment_sum_mixed_rows_and_repeat_calls(dev, gen):
+    """Sorted and unsorted rows in one batched call: the sorted rows give the
+    ordered sums bit for bit, the others the plain version's within rounding;
+    two calls on the same inputs give the same bits."""
+    seg, vals = _voxel_rows(gen, 64, 2048, 513, gen.integers(800, 1800, 64), 0.4)
+    seg[1::2] = gen.integers(-1, 514, (32, 2048))
+    seg_t, vals_t = _on(dev, seg, vals)
+    got = _close_to_plain(seg_t, vals_t, 513)
+    torch.testing.assert_close(
+        got[0::2], kseg.segment_sum_run_order(seg_t[0::2], vals_t[0::2], n_segments=513),
+        rtol=0, atol=0)
+    torch.testing.assert_close(_sum(seg_t, vals_t, 513), got, rtol=0, atol=0)
+    flat_seg, flat_vals = _on(dev, gen.integers(0, 4097, 7680).astype(np.int32),
+                              vals[0, :, :1920].repeat(4, axis=1))
+    once = _sum(flat_seg, flat_vals, 4097)
+    torch.testing.assert_close(_sum(flat_seg, flat_vals, 4097), once, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_segment_sum_sorted_after_unsorted(dev, gen, flat):
+    """A call on sorted ids after calls on ids in no order gives the ordered
+    sums bit for bit: nothing of one call carries into the next."""
+    R, W, S = (1, 32768, 4097) if flat else (64, 2048, 513)
+    seg, vals = _voxel_rows(gen, R, W, S, W // 2, 0.15)
+    unsorted = gen.integers(-1, S + 1, (R, W)).astype(np.int32)
+    seg_t, vals_t, unsorted_t = _on(dev, seg, vals, unsorted)
+    if flat:
+        seg_t, vals_t, unsorted_t = seg_t[0], vals_t[0], unsorted_t[0]
+    for _ in range(2):
+        _close_to_plain(unsorted_t, vals_t, S)
+        _equal_run_order(seg_t, vals_t, S)
 
 
 def _clustered(gen, n, centers, scale):

@@ -48,8 +48,10 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-PORT_KERNELS = ("segsum_kernel", "ring_top2_kernel", "resolve_kernel", "gn_kernel",
-                "topk_kernel", "lk_level_kernel")
+# the port's kernels by their CUDA names: K1's batched and flat forms, K2's
+# two stages, K3, K4/K5 and K6
+PORT_KERNELS = ("segsum_rows_kernel", "segsum_flat_kernel", "ring_top2_kernel",
+                "resolve_kernel", "gn_kernel", "topk_kernel", "lk_level_kernel")
 
 
 def _trace(run, frames):

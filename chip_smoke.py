@@ -23,7 +23,10 @@ Phase 1  holds each kernel against its plain PyTorch version on the card, at
          path's, a row all in the overflow bucket, runs of up to 1000
          points); they are timed before these checks, each in alternating
          rounds with ``index_add_`` (the median round of each), so that both
-         sides are timed in one state of the host.
+         sides are timed in one state of the host. K2 (edge and plane calls)
+         and K4 (corner and surf calls) are timed so too, each call against
+         the other, before their checks; both must give their plain
+         versions' outputs bit for bit.
 Phase 2  drives the odometry path at full width: ``OdometryPipeline(SystemConfig(),
          device="cuda").run_chunked(scans, chunk=8, ingest="polar2")`` on the
          48-frame synthetic HDL-64 corridor (64 rings x 2048 azimuth bins), one
@@ -254,35 +257,39 @@ def phase1_assoc(rng, dev):
 
     from lidar_visual_odometry_tpu_torch.kernels import nn
 
-    ms = plain_ms = bound = 0.0
-    err = 0.0
+    calls = {"edges": (768, 64, 120), "planes": (1536, 64, 512)}
+    inputs = {kind: _assoc_inputs(rng, Q, R, B, dev) for kind, (Q, R, B) in calls.items()}
+    # timed before the checks, the two calls in alternating rounds (median of five)
+    per_call = dict(zip(calls, _time_alternating_ms(
+        [partial(nn.associate_kernel, q, c, nearby_scan=2.5) for q, c in inputs.values()], 100)))
+    plain_ms = err = 0.0
     n_bytes = n_ops = 0
     shapes = []
-    for Q, R, B in ((768, 64, 120), (1536, 64, 512)):   # edges, planes
-        q, c = _assoc_inputs(rng, Q, R, B, dev)
+    for kind, (Q, R, B) in calls.items():
+        q, c = inputs[kind]
         out = nn.associate_kernel(q, c, nearby_scan=2.5)
         ref = nn.associate_kernel_plain(q, c, nearby_scan=2.5)
         torch.cuda.synchronize()
         e = float((out - ref).abs().max())
-        # same distances bit for bit (no FMA contraction in the kernel) and
-        # the same tie rules, so the same winners: tolerance 1e-6
-        if not torch.allclose(out, ref, rtol=0.0, atol=1e-6):
-            raise AssertionError(f"associate_kernel disagrees at Q={Q}, B={B}: {e}")
+        # the same distances without contraction and the same tie rules: the
+        # plain version's rows bit for bit
+        if not torch.equal(out, ref):
+            raise AssertionError(f"associate_kernel differs from its plain version at Q={Q}, "
+                                 f"B={B}: {e}")
         err = max(err, e)
-        ms += _time_ms(lambda: nn.associate_kernel(q, c, nearby_scan=2.5), 100)
         plain_ms += _time_ms(lambda: nn.associate_kernel_plain(q, c, nearby_scan=2.5), 10)
         n_bytes += 4 * (Q * 3 + R * B * 3 + Q * 16)
         n_ops += 8 * Q * R * B        # 3 sub, 3 mul, 2 add per distance
-        shapes.append(f"Q={Q} vs ({R},{B},3)")
+        shapes.append(f"{kind} Q={Q} vs ({R},{B},3) {per_call[kind]:.4f} ms")
     bound, by = _bound_ms(n_bytes, n_ops)
     return dict(
         name="associate_kernel", route="cuda",
         source="lidar_visual_odometry_tpu_torch/csrc/nn.cu",
         replaces="lidar_visual_odometry_tpu/ops/pallas_nn.py:220",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None,
+        max_abs_err=err, ms=sum(per_call.values()), plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None,
         shapes="edges + planes (one re-association round): " + ", ".join(shapes),
-        tolerance="atol 1e-6",
+        tolerance="exact (atol 0)",
     )
 
 
@@ -514,13 +521,18 @@ def phase1_topk_windowed(maps, queries, mcfg):
 
     from lidar_visual_odometry_tpu_torch.kernels import topk
 
-    ms = plain_ms = 0.0
+    kw = dict(k=mcfg.knn, q_tile=mcfg.nn_q_tile, c_tile=512, grid_w=mcfg.nn_grid_w)
+    names = ("corner", "surf")
+    inputs = {name: _knn_inputs(maps, queries, mcfg, name) for name in names}
+    # timed before the checks, the two calls in alternating rounds (median of five)
+    per_call = dict(zip(names, _time_alternating_ms(
+        [partial(topk.block_topk_windowed, *inputs[name], **kw) for name in names], 100)))
+    plain_ms = 0.0
     n_bytes = n_ops = 0
     pairs = total = 0
     shapes = []
-    for name in ("corner", "surf"):
-        q, q_keys, c_sorted, c_keys = _knn_inputs(maps, queries, mcfg, name)
-        kw = dict(k=mcfg.knn, q_tile=mcfg.nn_q_tile, c_tile=512, grid_w=mcfg.nn_grid_w)
+    for name in names:
+        q, q_keys, c_sorted, c_keys = inputs[name]
         d, i = topk.block_topk_windowed(q, q_keys, c_sorted, c_keys, **kw)
         dp, ip = topk.block_topk_windowed_plain(q, q_keys, c_sorted, c_keys, **kw)
         torch.cuda.synchronize()
@@ -529,7 +541,6 @@ def phase1_topk_windowed(maps, queries, mcfg):
         if not (torch.equal(d, dp) and torch.equal(i, ip)):
             raise AssertionError(f"block_topk_windowed disagrees with its plain version ({name}): "
                                  f"{float((d - dp).abs().max())}")
-        ms += _time_ms(lambda: topk.block_topk_windowed(q, q_keys, c_sorted, c_keys, **kw), 100)
         plain_ms += _time_ms(
             lambda: topk.block_topk_windowed_plain(q, q_keys, c_sorted, c_keys, **kw), 5)
         hits = topk.chunk_hits(q_keys, c_keys, q_tile=kw["q_tile"], c_tile=512,
@@ -541,14 +552,14 @@ def phase1_topk_windowed(maps, queries, mcfg):
         n_bytes += 4 * (4 * Q + 4 * C + 2 * mcfg.knn * Q)
         n_ops += 8 * hit_pairs        # 3 sub, 3 mul, 2 add per considered pair
         shapes.append(f"Q={Q} x C={C} ({name}, {float(hits.float().mean()):.3f} of "
-                      f"(tile, chunk) pairs read)")
+                      f"(tile, chunk) pairs read, {per_call[name]:.4f} ms)")
     bound, by = _bound_ms(n_bytes, n_ops)
     return dict(
         name="block_topk_windowed", route="cuda",
         source="lidar_visual_odometry_tpu_torch/csrc/topk.cu",
         replaces="lidar_visual_odometry_tpu/ops/pallas_nn.py:488",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None, skip_share=1.0 - pairs / total,
+        max_abs_err=0.0, ms=sum(per_call.values()), plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, skip_share=1.0 - pairs / total,
         shapes="one mapping round, k 5, q_tile 256, c_tile 512: " + ", ".join(shapes),
         tolerance="exact (atol 0), identical indices",
     )
@@ -604,7 +615,7 @@ def phase1_ring_top2(assoc, coords):
         torch.cuda.synchronize()
         err = max(err, float((out[0] - ref[0]).abs().max()))
         # the same float32 expression without contraction and the same tie
-        # rules (K2's loop): identical distances, indices and coordinates
+        # rules: identical distances, indices and coordinates
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{fn.__name__} disagrees with its plain version ({kind}): {err}")
         ms += _time_ms(lambda: fn(q, c), 100)

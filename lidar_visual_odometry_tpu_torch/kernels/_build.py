@@ -109,6 +109,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def stream(t) -> int:
+    """The current CUDA stream of tensor ``t``'s device as a raw handle, for a
+    launcher's stream argument (without building a ``torch.cuda.Stream``,
+    which costs more host time than a short kernel)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a C launcher returned a CUDA error code."""
     if rc != 0:

@@ -23,7 +23,9 @@ output forms apart.
 Candidates that are masked out must first be moved to ``BAKE_FAR`` with
 ``bake_mask``, so that they can never be nearest; they are ordinary far points
 to every kernel. The TPU kernels' padding of B to 128 lanes is not needed
-here: any B works.
+here: any B works for K7 and the plain versions; the card's K2 stages rings
+in shared memory, which takes B up to 9,556 at R = 64 (beyond, its launch
+fails and the wrapper raises).
 """
 
 from __future__ import annotations
@@ -128,6 +130,27 @@ def ring_top2_coords_plain(q_xyz: torch.Tensor, c_blocks_baked: torch.Tensor):
     return dist, flat[idx[..., 0].long()], flat[idx[..., 1].long()]
 
 
+#: the C launchers of ``csrc/nn.cu`` by name, with their ctypes argument types
+_ARGTYPES = {
+    "lvo_associate": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                                   ctypes.c_void_p],
+    "lvo_ring_top2": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+_fns: dict[str, object] = {}
+
+
+def _launcher(name: str):
+    """The C launcher ``name`` of ``csrc/nn.cu`` with its ctypes signature,
+    set once."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("nn"), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
 def _check(name, q_xyz, c_blocks_baked):
     if q_xyz.dim() != 2 or q_xyz.shape[1] != 3:
         raise ValueError(f"q_xyz must be (Q, 3), got {tuple(q_xyz.shape)}")
@@ -145,10 +168,6 @@ def _ring_top2_launch(name, q_xyz, c_blocks_baked, coords):
     _check(name, q_xyz, c_blocks_baked)
     Q = q_xyz.shape[0]
     R, B, _ = c_blocks_baked.shape
-    lib = _build.load("nn")
-    fn = lib.lvo_ring_top2
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dev = q_xyz.device
     dist = torch.empty((Q, R, 2), dtype=torch.float32, device=dev)
     if coords:
@@ -158,8 +177,8 @@ def _ring_top2_launch(name, q_xyz, c_blocks_baked, coords):
     else:
         out = (torch.empty((Q, R, 2), dtype=torch.int32, device=dev),)
         ptrs = (out[0].data_ptr(), None, None)
-    rc = fn(q_xyz.data_ptr(), c_blocks_baked.data_ptr(), dist.data_ptr(), *ptrs, Q, R, B,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = _launcher("lvo_ring_top2")(q_xyz.data_ptr(), c_blocks_baked.data_ptr(),
+                                    dist.data_ptr(), *ptrs, Q, R, B, _build.stream(q_xyz))
     _build.check(rc, name)
     return (dist,) + out
 
@@ -196,16 +215,9 @@ def associate_kernel(
     _check("associate_kernel", q_xyz, c_blocks_baked)
     Q = q_xyz.shape[0]
     R, B, _ = c_blocks_baked.shape
-    lib = _build.load("nn")
-    fn = lib.lvo_associate
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    scratch = torch.empty((4, R, Q), dtype=torch.float32, device=q_xyz.device)
     out = torch.empty((Q, 16), dtype=torch.float32, device=q_xyz.device)
-    rc = fn(q_xyz.data_ptr(), c_blocks_baked.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), Q, R, B, float(nearby_scan),
-            torch.cuda.current_stream(q_xyz.device).cuda_stream)
+    rc = _launcher("lvo_associate")(q_xyz.data_ptr(), c_blocks_baked.data_ptr(), out.data_ptr(),
+                                    Q, R, B, float(nearby_scan), _build.stream(q_xyz))
     _build.check(rc, "associate_kernel")
     launches += 1
     return out

@@ -51,13 +51,6 @@ def _launcher(name: str):
     return fn
 
 
-def _stream(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device as a raw handle (without
-    building a ``torch.cuda.Stream``, which costs more host time than the
-    kernel)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
-
-
 def segment_sum_batched_plain(
     seg_id: torch.Tensor, vals: torch.Tensor, *, n_segments: int
 ) -> torch.Tensor:
@@ -95,7 +88,7 @@ def segment_sum_batched(
     _check("segment_sum_batched", seg_id, vals, C)
     out = vals.new_empty((R, C, n_segments))
     rc = _launcher("lvo_segment_sum_batched")(
-        seg_id.data_ptr(), vals.data_ptr(), out.data_ptr(), R, C, W, n_segments, _stream(vals))
+        seg_id.data_ptr(), vals.data_ptr(), out.data_ptr(), R, C, W, n_segments, _build.stream(vals))
     _build.check(rc, "segment_sum_batched")
     launches += 1
     return out
@@ -121,7 +114,7 @@ def segment_sum(seg_id: torch.Tensor, vals: torch.Tensor, *,
     _check("segment_sum", seg_id, vals, C)
     out = vals.new_empty((C, n_segments))
     rc = _launcher("lvo_segment_sum_flat")(
-        seg_id.data_ptr(), vals.data_ptr(), out.data_ptr(), C, W, n_segments, _stream(vals))
+        seg_id.data_ptr(), vals.data_ptr(), out.data_ptr(), C, W, n_segments, _build.stream(vals))
     _build.check(rc, "segment_sum")
     flat_launches += 1
     return out

@@ -34,10 +34,12 @@ the TPU's K8 may leave a real candidate's coordinates in an unfilled slot, and
 its K5p returns INT_MAX keys, NaN distances, from the second unfilled slot on;
 the port's unfilled slots are zero and ``PACKED_SENTINEL``.)
 
-A CUDA tensor goes to the hand-written kernel ``csrc/topk.cu``; a CPU tensor
-goes to the plain version (``block_topk_windowed_plain`` applies the same
-(tile, chunk) rule, so the two agree element by element). Each wrapper counts
-its own launches, K5p apart from K5.
+A CUDA tensor goes to the hand-written kernels of ``csrc/topk.cu`` (the
+windowed form to a pair of its own, a range pre-pass and the search: two
+launches, counted as one call); a CPU tensor goes to the plain version
+(``block_topk_windowed_plain`` applies the same (tile, chunk) rule, so the two
+agree element by element). Each wrapper counts its calls that launch, K5p
+apart from K5.
 """
 
 from __future__ import annotations
@@ -192,25 +194,42 @@ def block_topk_windowed_plain(q_xyz, q_keys, c_sorted, c_keys, *, k: int = 5,
     return torch.cat(ds), torch.cat(ii)
 
 
-def _launch(name, q_xyz, q_keys, c, c_keys, k, q_tile, c_tile, reach, windowed, packed=False,
-            coords=False):
-    tensors = (q_xyz, c) + ((q_keys, c_keys) if windowed else ())
+#: the C launchers of ``csrc/topk.cu`` by name, with their ctypes argument types
+_ARGTYPES = {
+    "lvo_block_topk": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "lvo_block_topk_windowed": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
+_fns: dict[str, object] = {}
+
+
+def _launcher(name: str):
+    """The C launcher ``name`` of ``csrc/topk.cu`` with its ctypes signature,
+    set once."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("topk"), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _check_tensors(name, tensors, k):
     for t in tensors:
-        if t.device != q_xyz.device or t.device.type != "cuda":
+        if t.device != tensors[0].device or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
-    if q_xyz.dtype != torch.float32 or c.dtype != torch.float32:
+    if tensors[0].dtype != torch.float32 or tensors[1].dtype != torch.float32:
         raise TypeError(f"{name} takes float32 points")
-    if windowed and (q_keys.dtype != torch.int32 or c_keys.dtype != torch.int32):
-        raise TypeError(f"{name} takes int32 keys")
     if not 1 <= k <= 8:
         raise ValueError(f"{name} takes 1 <= k <= 8, got {k}")
+
+
+def _launch(name, q_xyz, c, k, packed=False, coords=False):
+    """The dense forms (K5, K5p, K8): one launch of ``topk_kernel``."""
+    _check_tensors(name, (q_xyz, c), k)
     Q, C = q_xyz.shape[0], c.shape[0]
-    lib = _build.load("topk")
-    fn = lib.lvo_block_topk
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     d = torch.empty((Q, k), dtype=torch.float32, device=q_xyz.device)
     if coords:
         out = torch.empty((Q, k, 3), dtype=torch.float32, device=q_xyz.device)
@@ -218,12 +237,33 @@ def _launch(name, q_xyz, q_keys, c, c_keys, k, q_tile, c_tile, reach, windowed, 
     else:
         out = torch.empty((Q, k), dtype=torch.int32, device=q_xyz.device)
         ptrs = (out.data_ptr(), None)
-    rc = fn(q_xyz.data_ptr(), q_keys.data_ptr() if windowed else None, c.data_ptr(),
-            c_keys.data_ptr() if windowed else None, d.data_ptr(), *ptrs,
-            Q, C, k, q_tile, c_tile, reach, int(windowed), int(packed),
-            torch.cuda.current_stream(q_xyz.device).cuda_stream)
+    rc = _launcher("lvo_block_topk")(
+        q_xyz.data_ptr(), None, c.data_ptr(), None, d.data_ptr(), *ptrs,
+        Q, C, k, 1, DENSE_CHUNK, 0, 0, int(packed),
+        _build.stream(q_xyz))
     _build.check(rc, name)
     return d, out
+
+
+def _launch_windowed(q_xyz, q_keys, c, c_keys, k, q_tile, c_tile, reach):
+    """K4: the range pre-pass and the windowed search, two launches on the
+    stream, with the pre-pass's (C / c_tile + Q / q_tile) int2 ranges in a
+    scratch tensor of the caller's stream."""
+    name = "block_topk_windowed"
+    _check_tensors(name, (q_xyz, c, q_keys, c_keys), k)
+    if q_keys.dtype != torch.int32 or c_keys.dtype != torch.int32:
+        raise TypeError(f"{name} takes int32 keys")
+    Q, C = q_xyz.shape[0], c.shape[0]
+    dev = q_xyz.device
+    ranges = torch.empty((C // c_tile + Q // q_tile, 2), dtype=torch.int32, device=dev)
+    d = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    rc = _launcher("lvo_block_topk_windowed")(
+        q_xyz.data_ptr(), q_keys.data_ptr(), c.data_ptr(), c_keys.data_ptr(), ranges.data_ptr(),
+        d.data_ptr(), i.data_ptr(), Q, C, k, q_tile, c_tile, reach,
+        _build.stream(q_xyz))
+    _build.check(rc, name)
+    return d, i
 
 
 def _check_points(name, q_xyz, c):
@@ -249,8 +289,7 @@ def block_topk_windowed(q_xyz: torch.Tensor, q_keys: torch.Tensor, c_sorted: tor
     if q_xyz.device.type == "cpu":
         return block_topk_windowed_plain(q_xyz, q_keys, c_sorted, c_keys, **kw)
     global windowed_launches
-    out = _launch("block_topk_windowed", q_xyz, q_keys, c_sorted, c_keys, k, q_tile,
-                  c_tile, grid_w + 1, True)
+    out = _launch_windowed(q_xyz, q_keys, c_sorted, c_keys, k, q_tile, c_tile, grid_w + 1)
     windowed_launches += 1
     return out
 
@@ -266,8 +305,7 @@ def block_topk(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5,
     if q_xyz.device.type == "cpu":
         return (block_topk_packed_plain if packed else block_topk_plain)(q_xyz, c_baked, k=k)
     global launches, packed_launches
-    out = _launch("block_topk", q_xyz, None, c_baked, None, k, 1, DENSE_CHUNK, 0, False,
-                  packed=packed)
+    out = _launch("block_topk", q_xyz, c_baked, k, packed=packed)
     if packed:
         packed_launches += 1
     else:
@@ -282,7 +320,6 @@ def block_topk_coords(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5)
     if q_xyz.device.type == "cpu":
         return block_topk_coords_plain(q_xyz, c_baked, k=k)
     global coords_launches
-    out = _launch("block_topk_coords", q_xyz, None, c_baked, None, k, 1, DENSE_CHUNK, 0, False,
-                  coords=True)
+    out = _launch("block_topk_coords", q_xyz, c_baked, k, coords=True)
     coords_launches += 1
     return out

@@ -15,7 +15,8 @@ visual trajectory is mapped back to the lidar frame as
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
 the coupled and mapping modes (``coupled=True``, ``mapping=True``), the
-``"uint16"`` ingest, checkpoint/resume/``stop_after`` and the per-frame
+``"uint16"`` ingest (the reference's default, so callers pass
+``ingest="polar2"``), checkpoint/resume/``stop_after`` and the per-frame
 ``run`` with ``match_nearest``.
 """
 
@@ -35,6 +36,7 @@ from ..utils.device import resolve_device
 from . import lidar_odometry as lo
 from . import scan_registration as sr
 from . import visual_frontend as vf
+from .pipeline import _check_ingest, _check_no_checkpoint
 
 
 def camera_cloud_select(raw: np.ndarray, R_cl: np.ndarray, t_cl: np.ndarray, cap: int):
@@ -150,7 +152,7 @@ class CamLidarPipeline:
             "yet (ROADMAP A.7); use run_chunked")
 
     def run_chunked(self, scans, images, chunk: int = 8, progress: bool = False,
-                    ingest: str = "polar2", coupled: bool = False, mapping: bool = False,
+                    ingest: str = "uint16", coupled: bool = False, mapping: bool = False,
                     map_skip: int = 1, checkpoint_path: str | None = None,
                     checkpoint_every: int = 0, resume: bool = False,
                     stop_after: int | None = None) -> CamLidarResult:
@@ -158,7 +160,10 @@ class CamLidarPipeline:
         ((H, W) uint8, or float in [0, 1]), ``chunk`` frames per upload. Frame
         0 bootstraps both states from its raw points (and its image as
         given); later images travel as uint8. Returns both trajectories;
-        frame 0 is the identity in both."""
+        frame 0 is the identity in both. The parameters are the reference's:
+        only ``"polar2"`` and ``"polar"`` are ported, the default ``"uint16"``
+        and the checkpoint arguments raise ``NotImplementedError`` (ROADMAP
+        A.7)."""
         if coupled:
             raise NotImplementedError(
                 "coupled=True (the visual pose warm-starting lidar odometry) is not ported "
@@ -167,14 +172,8 @@ class CamLidarPipeline:
             raise NotImplementedError(
                 "mapping=True (cam-lidar with device mapping) is not ported yet "
                 "(ROADMAP A.8 follow-up: cam-lidar coupled/mapping modes)")
-        if checkpoint_path is not None or checkpoint_every or resume or stop_after is not None:
-            raise NotImplementedError("checkpoint and resume are not ported yet (ROADMAP A.7)")
-        if ingest == "uint16":
-            raise NotImplementedError(
-                "ingest='uint16' is not ported yet (ROADMAP A.7: the 'float' / 'uint16' "
-                "ingests); use 'polar2' or 'polar'")
-        if ingest not in ("polar", "polar2"):
-            raise ValueError(f"ingest must be 'polar' or 'polar2', got {ingest!r}")
+        _check_no_checkpoint(checkpoint_path, checkpoint_every, resume, stop_after)
+        _check_ingest(ingest, unported=("uint16",))   # the reference's ingests
         n = len(scans)
         if len(images) != n:
             raise ValueError(f"{n} scans but {len(images)} images: run_chunked pairs them 1:1")

@@ -8,6 +8,9 @@ feature state; every later frame is packed on the host into a polar image
 (``ingest="polar2"``: range only, 2 B/cell; ``"polar"``: range and angular
 offsets, 4 B/cell), uploaded a chunk at a time, and run through
 ``odometry_chunk_polar`` (or ``device_mapping.slam_chunk_polar``) on the device.
+Both ``run_chunked``s take the reference's parameters in its order, with its
+defaults; its default ingests (``"float"``, ``"uint16"``) are not ported yet
+and raise, so callers pass ``ingest="polar2"`` or ``"polar"``.
 """
 
 from __future__ import annotations
@@ -33,13 +36,20 @@ class TrajectoryResult:
     per_frame_s: list = field(default_factory=list)
 
 
-def _check_ingest(ingest: str) -> None:
-    if ingest == "uint16":
+def _check_ingest(ingest: str, unported=("float", "uint16")) -> None:
+    """Raise for an ingest the port does not run: the reference's
+    ``unported`` ones are not ported yet, anything else is no ingest."""
+    if ingest in unported:
         raise NotImplementedError(
-            "ingest='uint16' is not ported yet (ROADMAP A: the per-frame run and "
-            "the 'float' / 'uint16' ingests); use 'polar2' or 'polar'")
+            f"ingest={ingest!r} is not ported yet (ROADMAP A.7: the 'float' / 'uint16' "
+            "ingests); pass ingest='polar2' or 'polar'")
     if ingest not in ("polar", "polar2"):
         raise ValueError(f"ingest must be 'polar' or 'polar2', got {ingest!r}")
+
+
+def _check_no_checkpoint(checkpoint_path, checkpoint_every, resume, stop_after) -> None:
+    if checkpoint_path is not None or checkpoint_every or resume or stop_after is not None:
+        raise NotImplementedError("checkpoint and resume are not ported yet (ROADMAP A.7)")
 
 
 class OdometryPipeline:
@@ -51,11 +61,21 @@ class OdometryPipeline:
         self.capacity = capacity
         self.device = resolve_device(device)
 
-    def run_chunked(self, scans, chunk: int = 8, ingest: str = "polar2") -> TrajectoryResult:
+    def run_chunked(self, scans, chunk: int = 8, progress: bool = False,
+                    quantize: bool = False, ingest: str | None = None,
+                    checkpoint_path: str | None = None, checkpoint_every: int = 0,
+                    resume: bool = False, stop_after: int | None = None) -> TrajectoryResult:
         """Run a whole sequence of raw (n_i, ≥3) scans, ``chunk`` frames per
         upload. Returns world positions and quaternions for every frame
-        (frame 0 is the identity)."""
+        (frame 0 is the identity). The parameters are the reference's:
+        ``ingest`` None means ``"uint16"`` with ``quantize``, else ``"float"``;
+        only ``"polar2"`` and ``"polar"`` are ported, the others and the
+        checkpoint arguments raise ``NotImplementedError`` (ROADMAP A.7).
+        ``progress`` prints the frame rate at the end."""
+        if ingest is None:
+            ingest = "uint16" if quantize else "float"
         _check_ingest(ingest)
+        _check_no_checkpoint(checkpoint_path, checkpoint_every, resume, stop_after)
         lcfg = self.cfg.lidar
         xyz0, mask0 = pc.pad_points(np.asarray(scans[0])[:, :3], self.capacity)
         reg0 = sr.register_scan(xyz0, mask0, lcfg, device=self.device)
@@ -81,7 +101,10 @@ class OdometryPipeline:
         all_t = torch.cat(ts).cpu().numpy()
         wall = time.perf_counter() - t0
         n = len(scans)
-        return TrajectoryResult(all_t, all_q, per_frame_s=[wall / max(n - 1, 1)] * n)
+        done = max(n - 1, 1)
+        if progress:
+            print(f"{n} frames ({done} computed) in {wall:.2f}s → {done / wall:.1f} fps")
+        return TrajectoryResult(all_t, all_q, per_frame_s=[wall / done] * n)
 
 
 class FullPipeline:
@@ -104,18 +127,20 @@ class FullPipeline:
             "FullPipeline.run (the per-frame driver) is not ported yet (ROADMAP A.7); "
             "use run_chunked")
 
-    def run_chunked(self, scans, chunk: int = 8, map_skip: int | None = None,
-                    ingest: str = "polar2", checkpoint_path: str | None = None,
-                    checkpoint_every: int = 0, resume: bool = False,
-                    stop_after: int | None = None):
+    def run_chunked(self, scans, chunk: int = 8, progress: bool = False,
+                    map_skip: int | None = None, ingest: str = "uint16",
+                    checkpoint_path: str | None = None, checkpoint_every: int = 0,
+                    resume: bool = False, stop_after: int | None = None):
         """Run a whole sequence of raw (n_i, ≥3) scans, ``chunk`` frames per
         upload, mapping every ``map_skip``-th frame (default
         ``cfg.odometry.skip_frame_num``). Returns (odometry, mapped)
-        ``TrajectoryResult``s; frame 0 is the identity in both."""
-        if checkpoint_path is not None or checkpoint_every or resume or stop_after is not None:
-            raise NotImplementedError(
-                "checkpoint and resume are not ported yet (ROADMAP A.7)")
+        ``TrajectoryResult``s; frame 0 is the identity in both. The
+        parameters are the reference's: only ``"polar2"`` and ``"polar"`` are
+        ported, the default ``"uint16"`` and the checkpoint arguments raise
+        ``NotImplementedError`` (ROADMAP A.7). ``progress`` prints the run's
+        time at the end."""
         _check_ingest(ingest)
+        _check_no_checkpoint(checkpoint_path, checkpoint_every, resume, stop_after)
         if map_skip is None:
             map_skip = self.cfg.odometry.skip_frame_num
         lcfg = self.cfg.lidar
@@ -147,6 +172,8 @@ class FullPipeline:
                                         for x in (odom_q, odom_t, map_q, map_t))
         wall = time.perf_counter() - start
         n = len(scans)
+        if progress:
+            print(f"odom+map: {n} frames in {wall:.2f}s")
         per = [wall / max(n - 1, 1)] * n
         return (TrajectoryResult(odom_t, odom_q, per_frame_s=per),
                 TrajectoryResult(map_t, map_q, per_frame_s=per))

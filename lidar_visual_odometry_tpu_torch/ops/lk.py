@@ -5,10 +5,12 @@
 
 Each level goes where the JAX package sends it on the TPU: to kernel K6
 (``kernels.lk.lk_level``) when the level has room for the window's clamped
-origin (``H − win − 4 ≥ 0`` and ``W − win − 4 ≥ 0``), else to the gather path
-``_track_level``, the JAX package's XLA formulation (each sample clamped, a
-fixed iteration count, no ``active`` skip, no ``eps`` exit). The bench's
-levels all take the kernel.
+origin (``H − win − 4 ≥ 0`` and ``W − win − 4 ≥ 0``) and the slot count
+``uv0.shape[0]`` is a multiple of 8 (the TPU kernel's batches of 8 features),
+else to the gather path ``_track_level``, the JAX package's XLA formulation
+(each sample clamped, a fixed iteration count, no ``active`` skip, no ``eps``
+exit). The bench's 768 slots and the default 1024 take the kernel on every
+level that fits.
 """
 
 from __future__ import annotations
@@ -108,10 +110,11 @@ def track_pyramid(
         it = iters if (lvl == 0 or iters_coarse is None) else iters_coarse
         img0, img1 = pyr0[lvl], pyr1[lvl]
         fits = img0.shape[0] - win - 4 >= 0 and img0.shape[1] - win - 4 >= 0
+        to_kernel = fits and uv0.shape[0] % 8 == 0     # the TPU's routing
         aff = affine and lvl == 0
         fixa = fixed_affine if lvl == 0 else None
         ret_a = return_affine and aff
-        if fits:
+        if to_kernel:
             res = klk.lk_level(img0, img1, (uv0 / s).contiguous(), d.contiguous(), active, fixa,
                                win=win, iters=it, eps=eps, affine=aff, return_affine=ret_a)
         else:

@@ -349,7 +349,7 @@ def test_unported_modes_raise(seq_data, port_cfg, monkeypatch):
     with pytest.raises(NotImplementedError, match="A.7"):
         pipe.run(scans, images)
     with pytest.raises(ValueError, match="1:1"):
-        pipe.run_chunked(scans, images[:2])
+        pipe.run_chunked(scans, images[:2], ingest="polar2")
     with pytest.raises(ValueError, match="ingest"):
         pipe.run_chunked(scans, images, ingest="float")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -210,6 +210,44 @@ def test_block_topk_windowed_matches_plain(dev, gen, C):
     torch.testing.assert_close(i, ip, rtol=0, atol=0)
 
 
+def _windowed_calls(n, q, q_keys, c, c_keys, **kw):
+    """``n`` calls of K4, each one launch-counter step; the last result."""
+    kernels.reset_launch_counts()
+    for step in range(1, n + 1):
+        out = ktop.block_topk_windowed(q, q_keys, c, c_keys, **kw)
+        assert kernels.launch_counts()["block_topk_windowed"] == step
+    return out
+
+
+@pytest.mark.parametrize("C", [16384, 32768])
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("case", ["path", "one cell", "unsorted", "straddling"])
+def test_block_topk_windowed_cases_bit_for_bit(dev, gen, C, k, case):
+    """K4's own kernels on the path's layout (sorted cell keys), with every
+    key in one cell (every chunk hits every tile: the dense worst case), with
+    c_keys in no order (the pre-pass reads every key), and with q_tile 24,
+    which puts 16-query blocks across two tiles; three calls each."""
+    centers = gen.uniform(-60, 60, (40, 3)) * np.array([1.0, 1.0, 0.05])
+    q = _clustered(gen, 4096 - (4096 % 24 if case == "straddling" else 0), centers, 1.0)
+    c = _clustered(gen, C, centers, 1.5)
+    q, c = (np.round(x * 8) / 8 for x in (q, c))        # ties of distance
+    q, c = _on(dev, q.astype(np.float32), c.astype(np.float32))
+    mask = torch.from_numpy(gen.uniform(size=C) > 0.2).to(dev)
+    origin = torch.tensor([-256.0, -256.0], device=dev)
+    kw = dict(k=k, q_tile=24 if case == "straddling" else 256, grid_w=256)
+    c_sorted, c_keys = ktop.sort_by_cell(c, mask, origin, cell=2.0, grid_w=256)
+    q_keys = ktop.cell_keys(q, origin, cell=2.0, grid_w=256)
+    order = torch.argsort(q_keys, stable=True)
+    q, q_keys = q[order].contiguous(), q_keys[order].contiguous()
+    if case == "one cell":
+        q_keys, c_keys = torch.full_like(q_keys, 777), torch.full_like(c_keys, 777)
+    elif case == "unsorted":
+        c_keys = c_keys[torch.randperm(C, device=dev)].contiguous()
+    d, i = _windowed_calls(3, q, q_keys, c_sorted, c_keys, **kw)
+    dp, ip = ktop.block_topk_windowed_plain(q, q_keys, c_sorted, c_keys, **kw)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
 @pytest.mark.parametrize("Q,C,k", [(4096, 32768, 5), (1000, 777, 3)])
 def test_block_topk_matches_plain(dev, gen, Q, C, k):
     q, c = _on(dev, gen.normal(size=(Q, 3)).astype(np.float32) * 20,
@@ -233,6 +271,52 @@ def test_associate_matches_plain(dev, gen, B):
     # same distances bit for bit, same tie rules → the same winners
     torch.testing.assert_close(knn_k.associate_kernel(q, baked),
                                knn_k.associate_kernel_plain(q, baked), rtol=0, atol=0)
+
+
+def _assoc_calls(q, baked, n, **kw):
+    """``n`` calls of K2, each one launch-counter step; the last result."""
+    kernels.reset_launch_counts()
+    for step in range(1, n + 1):
+        out = knn_k.associate_kernel(q, baked, **kw)
+        assert kernels.launch_counts()["associate_kernel"] == step
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 7, 120, 512, 513])
+def test_associate_staged_rings_bit_for_bit(dev, gen, B):
+    """The staged-ring K2 at B that are and are not multiples of 4 (16-byte
+    and 4-byte staging), Q 771 not a multiple of the 8-query block, each
+    candidate duplicated within its ring and ring 0 copied to ring 5 (ties
+    to the first index and to the first ring): the plain version's bits."""
+    c = gen.integers(-64, 64, size=(64, B, 3)).astype(np.float32) / 8
+    c[:, 1::2] = c[:, 0:B - 1:2]
+    c[5] = c[0]
+    q = gen.integers(-64, 64, size=(771, 3)).astype(np.float32) / 8
+    q[:8] = c[0, 0]                                      # distance 0 on rings 0 and 5
+    c, m, q = _on(dev, c, gen.uniform(size=(64, B)) > 0.2, q)
+    baked = knn_k.bake_mask(c, m).contiguous()
+    out = _assoc_calls(q, baked, 3)
+    assert torch.equal(out, knn_k.associate_kernel_plain(q, baked))
+
+
+def test_associate_empty_window_and_second_stream(dev, gen):
+    """nearby_scan 0.5 leaves every ring window empty (c1rw zero, dw 1e30);
+    two calls on a second stream give the default stream's result."""
+    c, m, q = _on(dev, gen.normal(size=(64, 120, 3)).astype(np.float32) * 8,
+                  gen.uniform(size=(64, 120)) > 0.2,
+                  gen.normal(size=(300, 3)).astype(np.float32) * 8)
+    baked = knn_k.bake_mask(c, m).contiguous()
+    out = _assoc_calls(q, baked, 1, nearby_scan=0.5)
+    want = knn_k.associate_kernel_plain(q, baked, nearby_scan=0.5)
+    assert torch.equal(out, want)
+    assert bool((out[:, 6:9] == 0).all()) and bool((out[:, 11] == 1e30).all())
+    want = knn_k.associate_kernel_plain(q, baked)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = _assoc_calls(q, baked, 2)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("B", [120, 512, 1])

@@ -127,7 +127,7 @@ def test_run_chunked_ragged_chunk_and_polar(seq_scans):
     # as in test_run_chunked_polar2_matches_jax
     np.testing.assert_allclose(got.positions, want.positions, atol=2e-4)
     np.testing.assert_allclose(got.quaternions, want.quaternions, atol=1e-5)
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError, match="A.7"):
         OdometryPipeline(cfg_t, device="cpu").run_chunked(scans, ingest="float")
 
 

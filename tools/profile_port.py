@@ -48,10 +48,31 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# the port's kernels by their CUDA names: K1's batched and flat forms, K2's
-# two stages, K3, K4/K5 and K6
-PORT_KERNELS = ("segsum_rows_kernel", "segsum_flat_kernel", "ring_top2_kernel",
-                "resolve_kernel", "gn_kernel", "topk_kernel", "lk_level_kernel")
+# the port's kernels by their CUDA names: K1's batched and flat forms, K2, K3,
+# K4's range pre-pass and search, K5 and K6
+PORT_KERNELS = ("segsum_rows_kernel", "segsum_flat_kernel", "assoc_kernel", "gn_kernel",
+                "topk_window_ranges_kernel", "topk_windowed_kernel", "topk_kernel",
+                "lk_level_kernel")
+
+
+def _kernel_name(key: str, name: str) -> str:
+    """A port kernel's name with its template arguments (``assoc_kernel<12>``),
+    so that the instantiations of one kernel stay apart."""
+    return key[key.index(name):].split("(")[0]
+
+
+def _k2_by_call(kernel_events, frames):
+    """K2's device time per call, its edge and plane calls apart: every
+    re-association round calls it on the edges, then on the planes
+    (``models/lidar_odometry.py``), so in time order the calls alternate."""
+    k2 = sorted((e for e in kernel_events if "assoc_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    if not k2 or len(k2) % 2:
+        return {}
+    return {kind: {"calls_per_frame": len(k2) / 2 / frames,
+                   "device_ms_per_call": sum(e.time_range.elapsed_us() for e in k2[j::2])
+                   / 1e3 / (len(k2) / 2)}
+            for j, kind in enumerate(("edges", "planes"))}
 
 
 def _trace(run, frames):
@@ -76,9 +97,10 @@ def _trace(run, frames):
         "device_busy_ms_per_frame": busy_us / 1e3 / frames,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_events_per_frame": len(kernel_events) / frames,
+        "associate_kernel_by_call": _k2_by_call(kernel_events, frames),
         "port_kernels_on_path": {
-            name: {"calls_per_frame": e.count / frames,
-                   "device_ms_per_call": _device_us(e) / 1e3 / max(e.count, 1)}
+            _kernel_name(e.key, name): {"calls_per_frame": e.count / frames,
+                                        "device_ms_per_call": _device_us(e) / 1e3 / max(e.count, 1)}
             for e in ops for name in PORT_KERNELS if name + "(" in e.key or name + "<" in e.key
         },
         "top_ops_by_device_time": [
@@ -259,7 +281,7 @@ def main() -> int:
                 "solve_pose_iterations_per_frame": int(vf.stats["solve_iterations"]) / n}
 
     if "odometry" in paths:
-        OdometryPipeline(cfg, device=dev).run_chunked(scans, chunk=8)   # warm
+        OdometryPipeline(cfg, device=dev).run_chunked(scans, chunk=8, ingest="polar2")   # warm
         torch.cuda.synchronize()
         r = stage_times(slam=False)
         # the less-flat voxel filter's share of feature extraction
@@ -273,33 +295,36 @@ def main() -> int:
         torch.cuda.synchronize()
         r["voxel_filter_ms_per_frame"] = 1e3 * (time.perf_counter() - t0) / 5
         r.update(_trace(lambda: OdometryPipeline(cfg, device=dev).run_chunked(
-            scans, chunk=8).positions, n))
+            scans, chunk=8, ingest="polar2").positions, n))
         result["odometry"] = r
 
     if "slam" in paths:
-        FullPipeline(cfg, device=dev).run_chunked(scans, chunk=8, map_skip=1)   # warm
+        FullPipeline(cfg, device=dev).run_chunked(scans, chunk=8, map_skip=1,
+                                                  ingest="polar2")   # warm
         torch.cuda.synchronize()
         r = stage_times(slam=True)
         torch.cuda.reset_peak_memory_stats()
         r.update(_trace(lambda: FullPipeline(cfg, device=dev).run_chunked(
-            scans, chunk=8, map_skip=1)[1].positions, n))
+            scans, chunk=8, map_skip=1, ingest="polar2")[1].positions, n))
         r["peak_device_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
         result["slam"] = r
 
     if "slam_dense" in paths:
         cfg_dense = SystemConfig(mapping=MappingConfig(windowed_nn=False))
-        FullPipeline(cfg_dense, device=dev).run_chunked(scans, chunk=8, map_skip=1)   # warm
+        FullPipeline(cfg_dense, device=dev).run_chunked(scans, chunk=8, map_skip=1,
+                                                        ingest="polar2")   # warm
         result["slam_dense"] = _trace(lambda: FullPipeline(cfg_dense, device=dev).run_chunked(
-            scans, chunk=8, map_skip=1)[1].positions, n)
+            scans, chunk=8, map_skip=1, ingest="polar2")[1].positions, n)
 
     if "camlidar" in paths:
         ccfg = camlidar_config()
-        cl.CamLidarPipeline(ccfg, device=dev).run_chunked(scans, images, chunk=8)   # warm
+        cl.CamLidarPipeline(ccfg, device=dev).run_chunked(scans, images, chunk=8,
+                                                          ingest="polar2")   # warm
         torch.cuda.synchronize()
         r = camlidar_stage_times()
         torch.cuda.reset_peak_memory_stats()
         r.update(_trace(lambda: cl.CamLidarPipeline(ccfg, device=dev).run_chunked(
-            scans, images, chunk=8).visual_positions, n))
+            scans, images, chunk=8, ingest="polar2").visual_positions, n))
         r["peak_device_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
         result["camlidar"] = r
 

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_launchers: dict[tuple[str, str], object] = {}
 
 
 def _verbose() -> bool:
@@ -107,6 +108,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _libs[name] = lib
     return lib
+
+
+def launcher(source: str, name: str, argtypes):
+    """The C launcher ``name`` of ``csrc/<source>.cu`` with its ctypes
+    signature (``argtypes``, an int return code), set on first use only."""
+    fn = _launchers.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _launchers[(source, name)] = fn
+    return fn
 
 
 def stream(t) -> int:

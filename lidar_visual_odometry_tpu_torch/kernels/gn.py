@@ -9,6 +9,13 @@ the hand-written kernel ``csrc/gn.cu``; a CPU tensor goes to
 ``gn_inner_loop_plain``, which follows the kernel's math (pivots clamped at
 1e-12, the update skipped when the step is not finite) rather than
 ``ops/gn.solve_damped``'s NaN guard.
+
+The kernel spreads one problem over a cluster of 8 blocks: each thread keeps
+its correspondences' pose-independent terms in registers for all
+iterations, the blocks' 27 partial sums meet once an iteration through
+distributed shared memory, and every thread solves the same 6×6 system. Its
+sums run in a fixed order, so repeated calls give the same bits; that order
+is not the plain version's, so the two agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -21,6 +28,13 @@ from . import _build
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
+
+#: ctypes argument types of ``lvo_gn_inner_loop``: q, t, the edge rows and
+#: weights, Ne, the plane rows and weights, Np, the output, n_iters, huber
+#: delta, lambda, the stream
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_void_p])
 
 
 def _quat_mat(qw, qx, qy, qz):
@@ -177,7 +191,6 @@ def gn_inner_loop(
             plane_p, plane_j, plane_l, plane_m, plane_w)
     if pose_q.device.type == "cpu":
         return gn_inner_loop_plain(*args, **kw)
-    global launches
     Ne, Np = edge_p.shape[1], plane_p.shape[1]
     shapes = ((4,), (3,), (3, Ne), (3, Ne), (3, Ne), (1, Ne),
               (3, Np), (3, Np), (3, Np), (3, Np), (1, Np))
@@ -190,19 +203,21 @@ def gn_inner_loop(
             raise ValueError("gn_inner_loop: all tensors must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError("gn_inner_loop takes contiguous tensors")
-    lib = _build.load("gn")
-    fn = lib.lvo_gn_inner_loop
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    pose_in = torch.cat([pose_q, pose_t])
+    return _launch(*args, n_iters=n_iters, huber_delta=huber_delta, lm_lambda=lm_lambda)
+
+
+def _launch(pose_q, pose_t, edge_p, edge_a, edge_b, edge_w,
+            plane_p, plane_j, plane_l, plane_m, plane_w, *, n_iters, huber_delta, lm_lambda):
+    """Launch the kernel on checked tensors: q and t go in as two pointers,
+    the pose comes back as views of one (8,) output."""
+    global launches
     pose_out = torch.empty(8, dtype=torch.float32, device=pose_q.device)
-    rc = fn(pose_in.data_ptr(), edge_p.data_ptr(), edge_a.data_ptr(), edge_b.data_ptr(),
-            edge_w.data_ptr(), Ne, plane_p.data_ptr(), plane_j.data_ptr(),
-            plane_l.data_ptr(), plane_m.data_ptr(), plane_w.data_ptr(), Np,
-            pose_out.data_ptr(), int(n_iters), float(huber_delta), float(lm_lambda),
-            torch.cuda.current_stream(pose_q.device).cuda_stream)
+    fn = _build.launcher("gn", "lvo_gn_inner_loop", _ARGTYPES)
+    rc = fn(pose_q.data_ptr(), pose_t.data_ptr(), edge_p.data_ptr(), edge_a.data_ptr(),
+            edge_b.data_ptr(), edge_w.data_ptr(), edge_p.shape[1], plane_p.data_ptr(),
+            plane_j.data_ptr(), plane_l.data_ptr(), plane_m.data_ptr(),
+            plane_w.data_ptr(), plane_p.shape[1], pose_out.data_ptr(), int(n_iters),
+            float(huber_delta), float(lm_lambda), _build.stream(pose_q))
     _build.check(rc, "gn_inner_loop")
     launches += 1
     return pose_out[:4], pose_out[4:7]

@@ -30,10 +30,13 @@ What bounds the kernel on the H100: neither bytes (two level images, ≤ 1 MB,
 sit in L2) nor operations (~30 MFLOP for the bench's affine level-0 call, ~6
 for each coarse 2×2 level: under a microsecond at the card's float32 rate),
 but each feature's serial chain of iterations, each a dependent sample →
-warp reduction → solve. One warp per feature keeps every sample of an
-iteration in flight at once and reduces with shuffles (no shared-memory
-barrier); the template and gradients stay in shared memory; 768 features
-fill 192 blocks of 4 warps.
+warp reduction → solve. One warp per feature; the kernel is instantiated for
+windows 9, 13 and 25 (others run a runtime-window instance), so a lane's
+elements are unrolled and all of an iteration's image loads are in flight
+at once; up to win 15 the template, gradients and affine columns stay in
+registers for all iterations (at win 25 in shared memory); the independent
+warp sums of a step share each shuffle round. 768 features fill 192 blocks
+of 4 warps.
 """
 
 from __future__ import annotations
@@ -51,6 +54,13 @@ _LANES = 32
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
+
+#: ctypes argument types of ``lvo_lk_level``: img0, img1, H, W, uv0, guess,
+#: active, fixed_affine, N, win, iters, eps², affine, damping, the output, the
+#: stream
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p, ctypes.c_void_p])
 
 
 def _f32(x: float) -> float:
@@ -246,7 +256,6 @@ def lk_level(
               return_iters=return_iters)
     if uv0.device.type == "cpu":
         return lk_level_plain(img0, img1, uv0, guess, active, fixed_affine, **kw)
-    global launches
     H, W = img0.shape
     _check_level(H, W, win, affine, fixed_affine, return_affine)
     N = uv0.shape[0]
@@ -266,22 +275,28 @@ def lk_level(
             raise ValueError("lk_level: all tensors must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"lk_level: {name} must be contiguous")
-    lib = _build.load("lk")
-    fn = lib.lvo_lk_level
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    out = torch.empty((N, 8), dtype=torch.float32, device=dev)
-    fa_ptr = fixed_affine.data_ptr() if fixed_affine is not None else None
-    rc = fn(img0.data_ptr(), img1.data_ptr(), H, W, uv0.data_ptr(), guess.data_ptr(),
-            active.data_ptr(), fa_ptr, N, win, iters, _f32(eps * eps), int(affine),
-            _f32(1.0 + AFF_DAMP), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "lk_level")
-    launches += 1
+    out = _launch(img0, img1, uv0, guess, active, fixed_affine, win=win, iters=iters, eps=eps,
+                  affine=affine)
     res = [out[:, :2], out[:, 2] > 0.5]
     if return_affine:
         res.append(out[:, 4:8])
     if return_iters:
         res.append(out[:, 3].to(torch.int32))
     return tuple(res)
+
+
+def _launch(img0, img1, uv0, guess, active, fixed_affine, *, win, iters, eps, affine):
+    """Launch the kernel on checked tensors; returns its (N, 8) rows
+    [dx, dy, ok, iterations, a0..a3]."""
+    global launches
+    H, W = img0.shape
+    N = uv0.shape[0]
+    out = torch.empty((N, 8), dtype=torch.float32, device=uv0.device)
+    fa_ptr = fixed_affine.data_ptr() if fixed_affine is not None else None
+    fn = _build.launcher("lk", "lvo_lk_level", _ARGTYPES)
+    rc = fn(img0.data_ptr(), img1.data_ptr(), H, W, uv0.data_ptr(), guess.data_ptr(),
+            active.data_ptr(), fa_ptr, N, win, iters, _f32(eps * eps), int(affine),
+            _f32(1.0 + AFF_DAMP), out.data_ptr(), _build.stream(uv0))
+    _build.check(rc, "lk_level")
+    launches += 1
+    return out

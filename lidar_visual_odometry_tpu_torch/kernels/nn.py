@@ -136,19 +136,10 @@ _ARGTYPES = {
                                                                    ctypes.c_void_p],
     "lvo_ring_top2": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
-_fns: dict[str, object] = {}
 
 
 def _launcher(name: str):
-    """The C launcher ``name`` of ``csrc/nn.cu`` with its ctypes signature,
-    set once."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load("nn"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+    return _build.launcher("nn", name, _ARGTYPES[name])
 
 
 def _check(name, q_xyz, c_blocks_baked):

@@ -33,22 +33,14 @@ flat_launches = 0
 #: ``kFlatPiece`` in ``csrc/segsum.cu``.
 FLAT_PIECE = 2048
 
-#: the C launchers of ``csrc/segsum.cu`` by name, with the count of their int
-#: arguments between the three pointers and the stream
-_N_INTS = {"lvo_segment_sum_batched": 4, "lvo_segment_sum_flat": 3}
-_fns: dict[str, object] = {}
+#: the C launchers of ``csrc/segsum.cu`` by name, with their ctypes argument
+#: types: three pointers, the int arguments, the stream
+_ARGTYPES = {name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+             for name, n_ints in (("lvo_segment_sum_batched", 4), ("lvo_segment_sum_flat", 3))}
 
 
 def _launcher(name: str):
-    """The C launcher ``name`` of ``csrc/segsum.cu`` with its ctypes
-    signature, set once."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load("segsum"), name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * _N_INTS[name] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+    return _build.launcher("segsum", name, _ARGTYPES[name])
 
 
 def segment_sum_batched_plain(

@@ -199,19 +199,10 @@ _ARGTYPES = {
     "lvo_block_topk": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "lvo_block_topk_windowed": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
-_fns: dict[str, object] = {}
 
 
 def _launcher(name: str):
-    """The C launcher ``name`` of ``csrc/topk.cu`` with its ctypes signature,
-    set once."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load("topk"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+    return _build.launcher("topk", name, _ARGTYPES[name])
 
 
 def _check_tensors(name, tensors, k):

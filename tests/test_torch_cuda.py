@@ -426,14 +426,164 @@ def test_lk_level_matches_plain(dev, gen, corridor_pair, level, affine, iters, f
     assert kernels.launch_counts()["lk_level"] == 1
     want = klk.lk_level_plain(i0, i1, uv, guess, act, fa_t if fixed else None, **kw)
     # the same samples, products and sums in the same order, each rounded on
-    # its own: identical flags and iteration counts; displacements within
-    # the stated tolerance (median 1e-4 px, max 2·eps + 1e-4 px)
-    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
-    torch.testing.assert_close(got[-1], want[-1], rtol=0, atol=0)
-    diff = (got[0] - want[0]).abs()
-    assert float(diff.median()) <= 1e-4 and float(diff.max()) <= 2 * eps + 1e-4, diff.max()
-    if affine:
-        assert float((got[2] - want[2]).abs().max()) <= 1e-3
+    # its own: every output bit for bit
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _lk_case(gen, dev, H, W, N, win, level, mode):
+    """Features over the whole level, a quarter of them within win/2 + 2 px
+    of a border, a fifth inactive; guesses of about a pixel at level 0."""
+    uv = np.stack([gen.uniform(0, W - 1, N), gen.uniform(0, H - 1, N)], -1)
+    edge = N // 8
+    uv[:edge, 0] = gen.uniform(0, win / 2 + 2, edge)
+    uv[edge:2 * edge, 1] = H - 1 - gen.uniform(0, win / 2 + 2, edge)
+    guess = gen.normal(0, 1.0 / 2 ** level, (N, 2))
+    act = gen.uniform(size=N) > 0.2
+    fa = gen.normal(0, 0.01, (N, 4)).astype(np.float32) if mode == "fixed" else None
+    uv_t, guess_t = _on(dev, uv.astype(np.float32), guess.astype(np.float32))
+    fa_t = _on(dev, fa)[0] if fa is not None else None
+    return uv_t, guess_t, torch.from_numpy(act).to(dev), fa_t
+
+
+@pytest.mark.parametrize("mode", ["2x2", "affine", "fixed"])
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("win", [9, 13, 25, 11])
+def test_lk_level_windows_bit_for_bit(dev, gen, corridor_pair, win, level, mode):
+    """K6's instances (win 9, 13 and 25 unrolled, 11 the runtime-window one)
+    at every level of the corridor pair, in every solve mode: N 770 at level 0
+    and 20 above (neither a multiple of the block's 4 features), eps 0 at
+    level 1 (every feature runs all its iterations). Every output equals the
+    plain version's bit for bit."""
+    pyr0, pyr1 = corridor_pair
+    i0, i1 = pyr0[level].to(dev), pyr1[level].to(dev)
+    H, W = i0.shape
+    N = 770 if level == 0 else 20
+    uv, guess, act, fa = _lk_case(gen, dev, H, W, N, win, level, mode)
+    affine = mode == "affine"
+    kw = dict(win=win, iters=10 if level == 0 else 4, eps=0.0 if level == 1 else 0.01,
+              affine=affine, return_affine=affine, return_iters=True)
+    kernels.reset_launch_counts()
+    got = klk.lk_level(i0, i1, uv, guess, act, fa, **kw)
+    assert kernels.launch_counts()["lk_level"] == 1
+    want = klk.lk_level_plain(i0, i1, uv, guess, act, fa, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert bool(want[1].any())      # some features were tracked, not only returned
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_lk_level_all_inactive(dev, gen, corridor_pair, affine):
+    """No active row: every row returns its guess, ok False, no iteration,
+    zero affine parameters."""
+    i0, i1 = corridor_pair[0][0].to(dev), corridor_pair[1][0].to(dev)
+    H, W = i0.shape
+    uv, guess, _, _ = _lk_case(gen, dev, H, W, 36, 13, 0, "2x2")
+    act = torch.zeros(36, dtype=torch.bool, device=dev)
+    kw = dict(win=13, iters=10, eps=0.01, affine=affine, return_affine=affine,
+              return_iters=True)
+    got = klk.lk_level(i0, i1, uv, guess, act, **kw)
+    want = klk.lk_level_plain(i0, i1, uv, guess, act, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    torch.testing.assert_close(got[0], guess, rtol=0, atol=0)
+    assert not bool(got[1].any()) and not bool(got[-1].any())
+
+
+def _rotation(w):
+    """Rotation matrix of the axis-angle vector ``w`` (Rodrigues)."""
+    th = float(np.linalg.norm(w))
+    k = np.asarray(w) / th
+    K = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(th) * K + (1.0 - np.cos(th)) * K @ K
+
+
+def _gn_args(gen, dev, ne, npl):
+    """Correspondences consistent with a known pose (R, t) that maps scan
+    points into the map; identity start; a fifth of the weights zero."""
+    R = _rotation([0.02, -0.03, 0.04])
+    t = np.array([0.3, -0.15, 0.1])
+    a = gen.uniform(-10, 10, (ne, 3))
+    d = gen.normal(size=(ne, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    p_e = (a + gen.uniform(-0.5, 1.5, (ne, 1)) * d - t) @ R       # R^T (x - t)
+    j = gen.uniform(-10, 10, (npl, 3))
+    n = gen.normal(size=(npl, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    t1 = np.cross(n, [0.3, 0.7, 0.64])
+    t1 /= np.linalg.norm(t1, axis=1, keepdims=True)
+    t2 = np.cross(n, t1)
+    p_p = (j + 0.3 * t1 + 0.2 * t2 - t) @ R
+    rows = [x.T.astype(np.float32) for x in (p_e, a, a + d)]
+    rows += [(gen.uniform(size=(1, ne)) > 0.2).astype(np.float32)]
+    rows += [x.T.astype(np.float32) for x in (p_p, j, j + t1, j + t2)]
+    rows += [(gen.uniform(size=(1, npl)) > 0.2).astype(np.float32)]
+    return _on(dev, np.array([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32), *rows), t
+
+
+def _gn_close(got, want):
+    """The tolerance of K3 against its plain version: float32 sums in
+    another order, fused multiply-adds in the kernel."""
+    (q, t), (qr, tr) = got, want
+    torch.testing.assert_close(t, tr, rtol=0, atol=1e-4)
+    torch.testing.assert_close(q * torch.sign(torch.dot(q, qr)), qr, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 4, 8])
+@pytest.mark.parametrize("ne,npl", [(768, 1536), (0, 1536), (768, 0), (5, 7), (1000, 3001)])
+def test_gn_inner_loop_cluster_matches_plain(dev, gen, ne, npl, n_iters):
+    """K3 at the path's counts, with one kind of correspondence absent, at
+    counts that fill no warp, and past the registers the cluster's threads
+    keep (3001 planes: some threads read theirs again each iteration). A
+    second call on the same inputs gives the same bits; no iteration returns
+    the start pose."""
+    args, t_true = _gn_args(gen, dev, ne, npl)
+    kernels.reset_launch_counts()
+    got = kgn.gn_inner_loop(*args, n_iters=n_iters)
+    again = kgn.gn_inner_loop(*args, n_iters=n_iters)
+    assert kernels.launch_counts()["gn_inner_loop"] == 2
+    _gn_close(got, kgn.gn_inner_loop_plain(*args, n_iters=n_iters))
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    if n_iters == 0:
+        assert torch.equal(got[0], args[0]) and torch.equal(got[1], args[1])
+    if n_iters == 8 and ne + npl > 100:
+        np.testing.assert_allclose(got[1].cpu().numpy(), t_true, atol=2e-3)
+
+
+def test_gn_inner_loop_zero_weights_and_nan(dev, gen):
+    """All weights zero: H = λ·1e-6·I, g = 0, a zero step. A NaN point with
+    weight 1: the step is not finite and the pose stays, bit for bit."""
+    args, _ = _gn_args(gen, dev, 768, 1536)
+    q0 = torch.tensor([0.96, 0.1, -0.2, 0.17], device=dev)
+    q0 = q0 / q0.norm()
+    t0 = torch.tensor([0.3, -0.1, 0.05], device=dev)
+    zero = list(args)
+    zero[0], zero[1] = q0, t0
+    zero[5], zero[10] = torch.zeros_like(args[5]), torch.zeros_like(args[10])
+    got = kgn.gn_inner_loop(*zero, n_iters=4)
+    _gn_close(got, kgn.gn_inner_loop_plain(*zero, n_iters=4))
+    torch.testing.assert_close(got[1], t0, rtol=0, atol=1e-7)
+    bad = list(args)
+    bad[0], bad[1] = q0, t0
+    bad[2] = args[2].clone()
+    bad[2][1, 17] = float("nan")
+    bad[5] = torch.ones_like(args[5])
+    got = kgn.gn_inner_loop(*bad, n_iters=4)
+    want = kgn.gn_inner_loop_plain(*bad, n_iters=4)
+    for g, w, start in zip(got, want, (q0, t0)):
+        assert torch.equal(g, start) and torch.equal(w, start)
+
+
+def test_gn_inner_loop_second_stream(dev, gen):
+    """Launched on a stream of its own, K3 gives the default stream's bits."""
+    args, _ = _gn_args(gen, dev, 768, 1536)
+    want = kgn.gn_inner_loop(*args, n_iters=4)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = kgn.gn_inner_loop(*args, n_iters=4)
+    side.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_wrappers_reject_bad_input(dev):

@@ -184,6 +184,25 @@ def test_gn_plain_matches_pallas(rng, n_iters):
         np.testing.assert_allclose(tt.numpy(), np.asarray(true.t), atol=2e-3)
 
 
+@pytest.mark.parametrize("ne,npl", [(5, 7), (77, 201)])
+def test_gn_plain_matches_pallas_unaligned(rng, ne, npl):
+    """Edge and plane counts that are not multiples of 128 (the TPU kernel's
+    lane width) or of a warp, unpadded, a few weights zero."""
+    _, edge, plane = make_problem(rng, ne=ne, npl=npl)
+    w_e = (rng.uniform(size=(1, ne)) > 0.2).astype(np.float32)
+    w_p = (rng.uniform(size=(1, npl)) > 0.2).astype(np.float32)
+    arrays = (
+        np.array([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32),
+        *(np.ascontiguousarray(x.T) for x in edge), w_e,
+        *(np.ascontiguousarray(x.T) for x in plane), w_p,
+    )
+    qj, tj = pallas_gn.gn_inner_loop(*map(jnp.asarray, arrays), n_iters=4, interpret=True)
+    qt, tt = kgn.gn_inner_loop(*map(_t, arrays), n_iters=4)
+    # the same math, float32 sums in another order: 1e-5
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-5)
+    assert abs(float(np.dot(qt.numpy(), np.asarray(qj)))) > 1 - 1e-6
+
+
 def test_gn_plain_skips_non_finite_step():
     """All weights zero → H = λ·1e-6·I, g = 0: the step is zero and the pose
     stays; a NaN correspondence makes the step non-finite and the pose stays."""
@@ -200,6 +219,79 @@ def test_gn_plain_skips_non_finite_step():
 
 
 # -------------------------------------------------------------------- build
+
+
+class _FakeLauncher:
+    """Stands in for a ctypes C function: counts ``argtypes`` assignments
+    and records each call's arguments."""
+
+    def __init__(self):
+        object.__setattr__(self, "argtypes_sets", 0)
+        object.__setattr__(self, "calls", [])
+
+    def __setattr__(self, name, value):
+        if name == "argtypes":
+            object.__setattr__(self, "argtypes_sets", self.argtypes_sets + 1)
+        object.__setattr__(self, name, value)
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _gn_launch(mod):
+    args = [torch.tensor([1.0, 0, 0, 0]), torch.zeros(3)]
+    args += [torch.zeros(s) for s in ((3, 5), (3, 5), (3, 5), (1, 5))]
+    args += [torch.zeros(s) for s in ((3, 7), (3, 7), (3, 7), (3, 7), (1, 7))]
+    q, t = mod._launch(*args, n_iters=4, huber_delta=0.1, lm_lambda=1e-4)
+    assert q.shape == (4,) and t.shape == (3,)
+    return args
+
+
+def _lk_launch(mod):
+    img = torch.zeros((24, 40))
+    uv = torch.full((8, 2), 12.0)
+    args = [img, img, uv, torch.zeros((8, 2)), torch.ones(8, dtype=torch.bool), None]
+    assert mod._launch(*args, win=9, iters=4, eps=0.01, affine=False).shape == (8, 8)
+    return args
+
+
+@pytest.mark.parametrize("name", ["gn", "lk"])
+def test_wrapper_binds_launcher_once(monkeypatch, name):
+    """K3's and K6's wrappers set the launcher's ctypes signature on their
+    first launch only, pass the stream handle from ``_build.stream`` and
+    build no ``torch.cuda.Stream``; K3 passes q and t as two pointers (no
+    ``torch.cat``). A fake library stands in for the CUDA one."""
+    from lidar_visual_odometry_tpu_torch.kernels import _build
+
+    mod, launch = {"gn": (kgn, _gn_launch), "lk": (klk, _lk_launch)}[name]
+    fn = _FakeLauncher()
+    loads, streams = [], []
+
+    def load(lib):
+        loads.append(lib)
+        return type("Lib", (), {"lvo_gn_inner_loop": fn, "lvo_lk_level": fn})()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the wrapper built a torch.cuda stream or concatenated")
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "stream", lambda t: streams.append(t) or 4242)
+    monkeypatch.setattr(torch.cuda, "current_stream", refuse)
+    monkeypatch.setattr(torch.cuda, "Stream", refuse)
+    monkeypatch.setattr(_build, "_launchers", {})
+    monkeypatch.setattr(mod, "launches", 0)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "cat", refuse)
+        args = [launch(mod) for _ in range(3)][-1]
+    assert loads == [name] and fn.argtypes_sets == 1 and fn.argtypes == mod._ARGTYPES
+    assert len(fn.calls) == 3 and mod.launches == 3
+    assert all(len(c) == len(mod._ARGTYPES) and c[-1] == 4242 for c in fn.calls)
+    assert len(streams) == 3
+    if name == "gn":
+        assert fn.calls[-1][:2] == (args[0].data_ptr(), args[1].data_ptr())
+
+
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

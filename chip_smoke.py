@@ -23,10 +23,10 @@ Phase 1  holds each kernel against its plain PyTorch version on the card, at
          path's, a row all in the overflow bucket, runs of up to 1000
          points); they are timed before these checks, each in alternating
          rounds with ``index_add_`` (the median round of each), so that both
-         sides are timed in one state of the host. K2 (edge and plane calls)
-         and K4 (corner and surf calls) are timed so too, each call against
-         the other, before their checks; both must give their plain
-         versions' outputs bit for bit. K3 (1 and 4 iterations, so that an
+         sides are timed in one state of the host. K2 (edge and plane calls),
+         K4 and K5 (corner and surf calls each) are timed so too, each call
+         against the other, before their checks; all three must give their
+         plain versions' outputs bit for bit. K3 (1 and 4 iterations, so that an
          iteration's cost is on record) and K6 (its four calls) are timed so
          too; K6 must give its plain version's outputs bit for bit, K3 its
          plain version's pose within 1e-4 and the same bits on a second call.
@@ -78,6 +78,7 @@ when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -575,34 +576,48 @@ def phase1_topk_windowed(maps, queries, mcfg):
     )
 
 
-def phase1_topk_dense(maps, queries, mcfg, dev):
+def phase1_topk_dense(maps, queries, mcfg):
+    """K5 on the frame-9 corner and surf queries against the world map: both
+    calls timed in alternating rounds (median of five) before the checks,
+    which demand the plain version's distances and indices bit for bit."""
     import torch
 
     from lidar_visual_odometry_tpu_torch.kernels import nn, topk
 
-    q = queries["surf"][0].contiguous()
-    baked = nn.bake_mask(*maps["surf"]).contiguous()
-    Q, C, k = q.shape[0], baked.shape[0], mcfg.knn
-    d, i = topk.block_topk(q, baked, k=k)
-    dp, ip = topk.block_topk_plain(q, baked, k=k)
-    torch.cuda.synchronize()
-    # as block_topk_windowed: identical distances and indices
-    if not (torch.equal(d, dp) and torch.equal(i, ip)):
-        raise AssertionError(f"block_topk disagrees with its plain version: "
-                             f"{float((d - dp).abs().max())}")
-    ms = _time_ms(lambda: topk.block_topk(q, baked, k=k), 50)
-    plain_ms = _time_ms(lambda: topk.block_topk_plain(q, baked, k=k), 3)
-    # for information only: torch.cdist + torch.topk, two calls (cdist's
-    # matrix-product distances round otherwise, and topk's ties are unordered)
-    two_calls_ms = _time_ms(lambda: torch.topk(torch.cdist(q, baked), k, largest=False), 20)
-    bound, by = _bound_ms(4 * (3 * Q + 3 * C + 2 * k * Q), 8 * Q * C)
+    k = mcfg.knn
+    names = ("corner", "surf")
+    inputs = {name: (queries[name][0].contiguous(), nn.bake_mask(*maps[name]).contiguous())
+              for name in names}
+    per_call = dict(zip(names, _time_alternating_ms(
+        [partial(topk.block_topk, q, c, k=k) for q, c in inputs.values()], 50)))
+    plain_ms = two_calls_ms = 0.0
+    n_bytes = n_ops = 0
+    shapes = []
+    for name in names:
+        q, c = inputs[name]
+        Q, C = q.shape[0], c.shape[0]
+        d, i = topk.block_topk(q, c, k=k)
+        dp, ip = topk.block_topk_plain(q, c, k=k)
+        torch.cuda.synchronize()
+        # as block_topk_windowed: identical distances and indices
+        if not (torch.equal(d, dp) and torch.equal(i, ip)):
+            raise AssertionError(f"block_topk disagrees with its plain version ({name}): "
+                                 f"{float((d - dp).abs().max())}")
+        plain_ms += _time_ms(lambda: topk.block_topk_plain(q, c, k=k), 3)
+        # for information only: torch.cdist + torch.topk, two calls (cdist's
+        # matrix-product distances round otherwise, and topk's ties are unordered)
+        two_calls_ms += _time_ms(lambda: torch.topk(torch.cdist(q, c), k, largest=False), 20)
+        n_bytes += 4 * (3 * Q + 3 * C + 2 * k * Q)
+        n_ops += 8 * Q * C
+        shapes.append(f"Q={Q} x C={C} ({name}, {per_call[name]:.4f} ms)")
+    bound, by = _bound_ms(n_bytes, n_ops)
     return dict(
         name="block_topk", route="cuda",
         source="lidar_visual_odometry_tpu_torch/csrc/topk.cu",
         replaces="lidar_visual_odometry_tpu/ops/pallas_nn.py:590",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None, cdist_topk_two_calls_ms=two_calls_ms,
-        shapes=f"Q={Q} x C={C} (surf), k {k}",
+        max_abs_err=0.0, ms=sum(per_call.values()), plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, cdist_topk_two_calls_ms=two_calls_ms,
+        shapes=f"one mapping round, k {k}: " + ", ".join(shapes),
         tolerance="exact (atol 0), identical indices",
     )
 
@@ -686,7 +701,8 @@ def phase1_topk_coords_packed(maps, queries, mcfg, packed):
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{'block_topk(packed)' if packed else 'block_topk_coords'} "
                                  f"disagrees with its plain version ({name})")
-        ms += _time_ms(lambda: fn(q, c), 50)
+        call_ms = _time_ms(lambda: fn(q, c), 50)
+        ms += call_ms
         plain_ms += _time_ms(lambda: plain(q, c), 3)
 
         def yardstick():
@@ -697,7 +713,7 @@ def phase1_topk_coords_packed(maps, queries, mcfg, packed):
         yard_ms += _time_ms(yardstick, 20)
         n_bytes += 4 * (3 * Q + 3 * C + (2 if packed else 4) * k * Q)
         n_ops += 8 * Q * C
-        shapes.append(f"Q={Q} x C={C} ({name})")
+        shapes.append(f"Q={Q} x C={C} ({name}, {call_ms:.4f} ms)")
     bound, by = _bound_ms(n_bytes, n_ops)
     return {
         "name": "block_topk_packed" if packed else "block_topk_coords", "route": "cuda",
@@ -970,7 +986,7 @@ def main() -> int:
     for fn in (lambda: phase1_segsum(rng, dev), lambda: phase1_assoc(rng, dev),
                lambda: phase1_gn(rng, dev), lambda: phase1_flat_segsum(rng, dev),
                lambda: phase1_topk_windowed(maps, queries, mcfg),
-               lambda: phase1_topk_dense(maps, queries, mcfg, dev),
+               lambda: phase1_topk_dense(maps, queries, mcfg),
                lambda: phase1_lk(images, dev),
                lambda: phase1_ring_top2(assoc, coords=False),
                lambda: phase1_ring_top2(assoc, coords=True),
@@ -1065,9 +1081,11 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     diff = float(np.abs(mapped_dense.positions - mapped.positions[:DENSE_FRAMES]).max())
+    # the positions' bytes, hashed: two runs (two trees) map alike iff these agree
+    digest = hashlib.sha256(np.ascontiguousarray(mapped_dense.positions).tobytes()).hexdigest()
     print(f"phase 3b: {DENSE_FRAMES} frames with windowed_nn=False, largest mapped-position "
-          f"difference from phase 3 {diff:.3g} m (tolerance {DENSE_TOL_M}), launches {counts}",
-          flush=True)
+          f"difference from phase 3 {diff:.3g} m (tolerance {DENSE_TOL_M}), mapped positions "
+          f"sha256 {digest[:16]}, launches {counts}", flush=True)
     if counts["block_topk"] == 0 or counts["block_topk_windowed"] != 0:
         raise AssertionError(f"the dense search did not run kernel K5 alone: {counts}")
     if not diff <= DENSE_TOL_M:

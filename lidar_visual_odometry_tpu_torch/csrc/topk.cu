@@ -8,7 +8,7 @@
 //    cell, which is all the scan-to-map 1 m gates need. It has kernels of its
 //    own (lvo_block_topk_windowed; see the K4 section below).
 //  * dense (K5): replaces pallas_nn.py block_topk with packed=False
-//    (_block_topk_loop_kernel): the same loop with no range test.
+//    (_block_topk_loop_kernel): every candidate, no range test.
 //  * dense with coordinates (K8): replaces pallas_nn.py block_topk_coords
 //    (_block_topk_kernel): K5, then each slot's coordinates fetched by index
 //    in place of the TPU kernel's one-hot reductions. Its rule for the
@@ -25,7 +25,7 @@
 // scripts/profile_mapping.py call them); they run at the mapping path's shapes.
 // On the mapping path: Q 4096 queries against C 16384 (corner) and 32768
 // (surf) map points, k 5, q_tile 256, c_tile 512, two windowed launches per
-// re-association round.
+// re-association round; K5 only with MappingConfig(windowed_nn=False).
 //
 // The result is what the TPU kernel computes: for each query the k smallest
 // (distance, index) pairs in that order, distances ascending, ties to the
@@ -35,31 +35,63 @@
 // version gives the same bits. Candidates baked to BAKE_FAR (1e6) are
 // ordinary far candidates.
 //
-// What bounds it on an H100: operations. Each considered (query, candidate)
-// pair costs 3 subtractions, 3 products and 2 sums (8 float32 operations); the
-// bytes (queries, candidates and keys once, results once) are well under a
-// megabyte. At Q 4096 x C 32768 the dense form is 1.07 G operations, 16 us at
-// 67 TFLOP/s; the windowed form does the pairs of the chunks it reads.
+// ---- K5, K8, K5p: topk_kernel<K, Form>, one launch a call ----
 //
-// Design of topk_kernel (K5, K8, K5p): one block per 32 queries (one query
-// per lane) and kSplits warps.
-// The block first finds the chunks it must read (for K4, the union over the
-// query tiles its queries belong to, usually one; every chunk for K5) and
-// lists them in index order in shared memory. It then stages kSplits listed
-// chunks at a time through shared memory (coalesced loads, planar x/y/z);
-// warp w walks the w-th staged chunk, so each warp sees its chunks in
-// ascending index order and keeps a running top-k per lane in registers,
-// inserting a candidate only when it is strictly nearer than the k-th (the
-// lower index wins ties, as the TPU kernel's first-index argmin and its
-// running-before-local merge do). For K4 a lane also skips a staged chunk that
-// its own tile's range misses. At the end warp 0 merges the kSplits lists of
-// each query by (distance, index), which gives the same k pairs in any split.
-// 32 queries a block give Q / 32 = 128 blocks at the path's Q 4096. K8 is K5
-// with another epilogue; K5p is K5 with one int32 key in place of each
-// (distance, index) pair, inserted and merged by integer order. (K4 ran in
-// topk_kernel until it got kernels of its own; its windowed branch is no
-// longer launched and goes with K5's redesign, which keeps topk_kernel's
-// code, and so K5, K8 and K5p, as they were until then.)
+// What bounds it on an H100: operations. Each (query, candidate) pair costs 3
+// subtractions, 3 products and 2 sums, each rounded alone; the bytes
+// (queries and candidates once, results once) are well under a megabyte. At
+// Q 4096 x C 32768 that is 1.07 G float32 operations, 16 us at the 67 TFLOP/s
+// of the table's bound. That rate counts a fused multiply-add as two
+// operations, and none may be fused here, so the floor is the instruction
+// rate: 8 operations and a compare a pair on 132 SMs x 128 lanes at ~1.98
+// GHz is about 0.036 ms at C 32768 and 0.018 ms at C 16384, 2.3 times the
+// bound. The tensor cores cannot help: |q|^2 + |c|^2 - 2 q.c rounds otherwise
+// and reorders near ties.
+//
+// Design (replacing one block per 32 queries, a query a lane, 8 warps over
+// 8 chunks and a merge by warp 0: 128 blocks at Q 4096 for 132 SMs, two
+// warps a scheduler, a latency chain and a divergent insertion a candidate):
+//  * The card is filled by splitting each group of kBlockQueries queries'
+//    candidates into S pieces of whole chunks (block r of the cluster takes
+//    chunks r, r + S, ...), one block each, launched as a thread-block
+//    cluster of S blocks (S from 1 to 8, chosen at launch so that the grid
+//    fits the blocks the card holds at once: S 2 at Q 4096). At the end
+//    every block pushes its lists into the cluster leader's shared memory
+//    (distributed shared memory: mapa + st.shared::cluster between two
+//    cluster barriers), and the leader merges them by (distance, index), or
+//    by key for K5p: the same k pairs whatever the split.
+//  * A warp holds kWarpQueries queries, every lane all of them; its lanes
+//    split the candidates (lane l reads quads l, l + 32, ... of a chunk:
+//    three 16-byte shared loads a quad, conflict-free), so one read of a
+//    candidate serves kWarpQueries distances.
+//  * Staging is asynchronous: a block's piece lies in shared memory in
+//    windows of kWindow chunks (12 KB each, as the candidates lie in
+//    memory); one thread issues a window's 1-D bulk copies (TMA) at once,
+//    each completing on its own mbarrier, and the warps start on a chunk as
+//    soon as it lands. At Q 4096 a piece is one window at C 16384 and two,
+//    one after the other, at C 32768.
+//  * Two passes over the resident window, so that insertions do not depend
+//    on the candidates' order (a streaming top-k inserts about k ln(n/k)
+//    times a query on random order, and far more on a cloud stored in
+//    spatial order, each insertion stalling its warp). Pass 1 keeps, per
+//    lane and query, the nearest distance and its quad: 4 distances, a
+//    minimum and a compare a quad, no insertion and no warp collective. The
+//    K-th smallest of the warp's 32 (distance, quad) pairs bounds the
+//    query's K-th nearest, and only the K lanes at or below it can hold a
+//    candidate at or below it. Pass 2 hands those (query, lane) pairs to the
+//    warp's lanes, which recompute that lane's quads for that query alone
+//    and mark a quad whose nearest is at or below the bound (one compare a
+//    quad); every lane then recomputes the few marked quads alike and offers
+//    their candidates at or below the bound (a few a query) to the query's
+//    list, which each lane holds in registers. The list compares
+//    (distance, index) (K5p: the key), so ties keep the lower index whatever
+//    the order of the offers.
+//  * Rounding as before: __fsub_rn, __fmul_rn and __fadd_rn in the same order.
+// K8 and K5p are K5 with another epilogue or key, separate instances
+// (topk_kernel<K, kCoords>, <K, kPacked>), so a trace tells them apart.
+// What holds it back (PERF.md): pass 1 issues about 10 instructions a pair
+// (the floor above), and pass 2, a quarter of pass 1's distances, costs
+// well above that share (a quad's three loads serve one query).
 
 #include <cuda_runtime.h>
 
@@ -69,11 +101,7 @@
 
 namespace {
 
-constexpr int kQB = 32;       // queries per block, one per lane
-constexpr int kSplits = 8;    // warps per block
-constexpr int kThreads = kQB * kSplits;
 constexpr int kMaxK = 8;
-constexpr int kMaxTiles = kQB;  // query tiles one block can span (q_tile >= 1)
 constexpr float kBig = 1e30f;
 constexpr float kFar = 1e29f;
 constexpr int kLowBits = 0x7FFF;  // K5p: the index bits of a packed key
@@ -99,244 +127,6 @@ __device__ __forceinline__ void insert_in_order(float d, int id, float (&bd)[K],
       bi[s] = id;
     }
   }
-}
-
-// Insert a packed key into an ascending list of keys (distinct but for the
-// sentinel, which no key equal to it replaces).
-template <int K>
-__device__ __forceinline__ void insert_key(int key, int (&bk)[K]) {
-  if (!(key < bk[K - 1])) return;
-#pragma unroll
-  for (int s = K - 1; s >= 0; --s) {
-    if (s > 0 && key < bk[s - 1]) {
-      bk[s] = bk[s - 1];
-    } else if (key < bk[s]) {
-      bk[s] = key;
-    }
-  }
-}
-
-// Insert (d, id) into a list ordered by (distance, index).
-template <int K>
-__device__ __forceinline__ void insert_lex(float d, int id, float (&bd)[K], int (&bi)[K]) {
-  if (!lex_less(d, id, bd[K - 1], bi[K - 1])) return;
-#pragma unroll
-  for (int s = K - 1; s >= 0; --s) {
-    if (s > 0 && lex_less(d, id, bd[s - 1], bi[s - 1])) {
-      bd[s] = bd[s - 1];
-      bi[s] = bi[s - 1];
-    } else if (lex_less(d, id, bd[s], bi[s])) {
-      bd[s] = d;
-      bi[s] = id;
-    }
-  }
-}
-
-// Packed: bi holds the keys and bd is unused. out_i and out_c may be null.
-template <int K, bool Packed>
-__global__ void __launch_bounds__(kThreads) topk_kernel(
-    const float* __restrict__ q, const int* __restrict__ q_keys,
-    const float* __restrict__ c, const int* __restrict__ c_keys,
-    float* __restrict__ out_d, int* __restrict__ out_i, float* __restrict__ out_c,
-    int Q, int C, int q_tile, int c_tile, int reach, int windowed) {
-  extern __shared__ float smem[];
-  const int n_c = (C + c_tile - 1) / c_tile;
-  float* cx = smem;                      // (kSplits, c_tile) staged candidates
-  float* cy = cx + kSplits * c_tile;
-  float* cz = cy + kSplits * c_tile;
-  int* clo = reinterpret_cast<int*>(cz + kSplits * c_tile);  // (n_c,) chunk key ranges
-  int* chi = clo + n_c;
-  int* hits = chi + n_c;                 // (n_c,) chunks to read, ascending
-  __shared__ int tlo[kMaxTiles], thi[kMaxTiles];
-  __shared__ int n_hits;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * kQB;
-  const int qi = q0 + lane;
-  const bool q_ok = qi < Q;
-  const int t0 = q0 / q_tile;            // first query tile of the block
-  float px = 0.0f, py = 0.0f, pz = 0.0f;
-  if (q_ok) {
-    px = q[3 * qi];
-    py = q[3 * qi + 1];
-    pz = q[3 * qi + 2];
-  }
-
-  // ---- 1. the chunks this block reads, in ascending order ----
-  int my_lo = 0, my_hi = 0;
-  if (windowed) {
-    const int q_last = min(q0 + kQB, Q) - 1;
-    const int n_t = q_last / q_tile - t0 + 1;
-    for (int t = threadIdx.x; t < n_t; t += blockDim.x) {
-      tlo[t] = 0x7fffffff;
-      thi[t] = -0x7fffffff - 1;
-    }
-    for (int ci = warp; ci < n_c; ci += kSplits) {  // a warp per chunk: min and max key
-      int lo = 0x7fffffff, hi = -0x7fffffff - 1;
-      const int end = min(C, (ci + 1) * c_tile);
-      for (int j = ci * c_tile + lane; j < end; j += 32) {
-        const int key = c_keys[j];
-        lo = min(lo, key);
-        hi = max(hi, key);
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-      }
-      if (lane == 0) {
-        clo[ci] = lo;
-        chi[ci] = hi;
-      }
-    }
-    __syncthreads();
-    for (int j = t0 * q_tile + threadIdx.x; j < (t0 + n_t) * q_tile; j += blockDim.x) {
-      const int key = q_keys[j];  // Q is a multiple of q_tile: every tile is whole
-      atomicMin(&tlo[j / q_tile - t0], key);
-      atomicMax(&thi[j / q_tile - t0], key);
-    }
-    __syncthreads();
-    const int mt = q_ok ? qi / q_tile - t0 : 0;
-    my_lo = tlo[mt] - reach;
-    my_hi = thi[mt] + reach;
-    if (threadIdx.x == 0) {
-      int n = 0;
-      for (int ci = 0; ci < n_c; ++ci) {
-        bool hit = false;
-        for (int t = 0; t < n_t; ++t)
-          hit |= clo[ci] <= thi[t] + reach && chi[ci] >= tlo[t] - reach;
-        if (hit) hits[n++] = ci;
-      }
-      n_hits = n;
-    }
-  } else {
-    for (int ci = threadIdx.x; ci < n_c; ci += blockDim.x) hits[ci] = ci;
-    if (threadIdx.x == 0) n_hits = n_c;
-  }
-  __syncthreads();
-  const int nh = n_hits;
-
-  // ---- 2. stream the listed chunks, kSplits at a time ----
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = kBig;
-    bi[s] = Packed ? kPackedSentinel : 0;
-  }
-  for (int h0 = 0; h0 < nh; h0 += kSplits) {
-    const int n_stage = min(kSplits, nh - h0);
-    __syncthreads();  // the previous round's chunks are consumed
-    for (int slot = 0; slot < n_stage; ++slot) {
-      const int base = hits[h0 + slot] * c_tile;
-      const int n = min(c_tile, C - base);
-      const float* src = c + 3LL * base;
-      for (int f = threadIdx.x; f < 3 * n; f += blockDim.x) {
-        const float v = src[f];
-        const int j = f / 3;
-        const int comp = f - 3 * j;
-        (comp == 0 ? cx : comp == 1 ? cy : cz)[slot * c_tile + j] = v;
-      }
-    }
-    __syncthreads();
-    if (warp < n_stage) {
-      const int ci = hits[h0 + warp];
-      const bool mine = !windowed || (clo[ci] <= my_hi && chi[ci] >= my_lo);
-      if (q_ok && mine) {
-        const int base = ci * c_tile;
-        const int n = min(c_tile, C - base);
-        const float* sx = cx + warp * c_tile;
-        const float* sy = cy + warp * c_tile;
-        const float* sz = cz + warp * c_tile;
-        for (int j = 0; j < n; ++j) {
-          const float dx = __fsub_rn(px, sx[j]);
-          const float dy = __fsub_rn(py, sy[j]);
-          const float dz = __fsub_rn(pz, sz[j]);
-          const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                    __fmul_rn(dz, dz));
-          if constexpr (Packed) {
-            insert_key<K>((__float_as_int(d) & ~kLowBits) | (base + j), bi);
-          } else {
-            insert_in_order<K>(d, base + j, bd, bi);
-          }
-        }
-      }
-    }
-  }
-
-  // ---- 3. merge the warps' lists per query, by (distance, index) ----
-  __syncthreads();
-  float* md = smem;                                        // (kSplits, K, kQB)
-  int* mi = reinterpret_cast<int*>(md + kSplits * K * kQB);  // (kSplits, K, kQB)
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    md[(warp * K + s) * kQB + lane] = bd[s];
-    mi[(warp * K + s) * kQB + lane] = bi[s];
-  }
-  __syncthreads();
-  if (warp == 0 && q_ok) {
-    for (int w = 1; w < kSplits; ++w) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        if constexpr (Packed) {
-          insert_key<K>(mi[(w * K + s) * kQB + lane], bi);
-        } else {
-          insert_lex<K>(md[(w * K + s) * kQB + lane], mi[(w * K + s) * kQB + lane], bd, bi);
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const long long o = static_cast<long long>(qi) * K + s;
-      if constexpr (Packed) {
-        out_d[o] = __int_as_float(bi[s] & ~kLowBits);
-        out_i[o] = bi[s] & kLowBits;
-      } else if (out_c != nullptr) {
-        // K8: a filled slot (below the 1e30 start) takes its candidate's
-        // coordinates; its distance reads 1e30 above 1e29, as on the TPU
-        const bool filled = bd[s] < kBig;
-        out_d[o] = bd[s] > kFar ? kBig : bd[s];
-        for (int k = 0; k < 3; ++k) out_c[3 * o + k] = filled ? c[3LL * bi[s] + k] : 0.0f;
-        if (out_i != nullptr) out_i[o] = bi[s];
-      } else {
-        out_d[o] = bd[s];
-        out_i[o] = bi[s];
-      }
-    }
-  }
-}
-
-template <int K, bool Packed>
-cudaError_t launch(const void* q, const void* q_keys, const void* c, const void* c_keys,
-                   void* out_d, void* out_i, void* out_c, int Q, int C, int q_tile,
-                   int c_tile, int reach, int windowed, cudaStream_t stream) {
-  const int n_c = (C + c_tile - 1) / c_tile;
-  const size_t staged = sizeof(float) * 3 * kSplits * static_cast<size_t>(c_tile);
-  const size_t merged = (sizeof(float) + sizeof(int)) * kSplits * K * kQB;
-  const size_t smem = (staged > merged ? staged : merged) + sizeof(int) * 3 * n_c;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        topk_kernel<K, Packed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int blocks = (Q + kQB - 1) / kQB;
-  topk_kernel<K, Packed><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const int*>(q_keys),
-      static_cast<const float*>(c), static_cast<const int*>(c_keys),
-      static_cast<float*>(out_d), static_cast<int*>(out_i), static_cast<float*>(out_c), Q, C,
-      q_tile, c_tile, reach, windowed);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t launch_k(const void* q, const void* q_keys, const void* c, const void* c_keys,
-                     void* out_d, void* out_i, void* out_c, int Q, int C, int q_tile,
-                     int c_tile, int reach, int windowed, int packed, cudaStream_t stream) {
-  return packed ? launch<K, true>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile,
-                                  c_tile, reach, windowed, stream)
-                : launch<K, false>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile,
-                                   c_tile, reach, windowed, stream);
 }
 
 // ---- K4: the windowed search, kernels of its own ----
@@ -598,28 +388,571 @@ cudaError_t launch_windowed(const void* q, const void* q_keys, const void* c,
   return cudaGetLastError();
 }
 
+
+// ---- K5, K8, K5p: the dense search (design in the note at the top) ----
+
+constexpr int kDenseWarps = 8;       // warps a block, each with kWarpQueries queries
+constexpr int kWarpQueries = 4;      // queries a warp; every lane holds all of them
+constexpr int kDenseThreads = 32 * kDenseWarps;
+constexpr int kBlockQueries = kDenseWarps * kWarpQueries;
+constexpr int kChunk = 1024;         // candidates a chunk (12 KB), a multiple of 128
+constexpr int kWindow = 8;           // chunks resident at once (96 KB)
+constexpr int kMaxCluster = 8;       // blocks that split a query group's candidates
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Form { kIndex = 0, kCoords = 1, kPacked = 2 };  // K5, K8, K5p
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// arrive, and expect `bytes` of bulk-copy data in this phase
+__device__ __forceinline__ void bar_arrive_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// wait for the phase of parity `parity` to complete (each try suspends the
+// thread for at most ~1 us); a phase that never completes (a fault) ends the
+// kernel with an error within seconds instead of a hang
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  for (unsigned spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cta.shared::cta.b64 p, [%1], %2, 1000;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 22)) __trap();
+  }
+}
+
+// one 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global memory into this block's shared memory,
+// counted on mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// store v at shared address `addr` of the cluster's block `rank`
+__device__ __forceinline__ void store_in_block(unsigned addr, int rank, unsigned v) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.b32 [%0], %1;" ::"r"(r), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// The k-th smallest of the lanes' v in unsigned order (k <= 32), in every lane.
+template <int K>
+__device__ __forceinline__ unsigned warp_kth_unsigned(unsigned v, int lane) {
+  unsigned kth = v;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    kth = __reduce_min_sync(kFull, v);
+    const unsigned holders = __ballot_sync(kFull, v == kth);
+    if (lane == __ffs(holders) - 1) v = 0xffffffffu;  // the lowest holder drops it
+  }
+  return kth;
+}
+
+// Insert (d, i) into an ascending list ordered by (distance, index): a
+// bubble pass that keeps the smaller pair in each slot and carries the larger
+// on (the last slot's pair drops out).
+template <int K>
+__device__ __forceinline__ void insert_lex(float d, int i, float (&ld)[K], int (&li)[K]) {
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const bool lt = lex_less(d, i, ld[s], li[s]);
+    const float td = lt ? ld[s] : d;
+    const int ti = lt ? li[s] : i;
+    ld[s] = lt ? d : ld[s];
+    li[s] = lt ? i : li[s];
+    d = td;
+    i = ti;
+  }
+}
+
+// K5p: the same for a list of packed keys, by integer minimum and maximum.
+template <int K>
+__device__ __forceinline__ void insert_key(int key, int (&lk)[K]) {
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int lo = min(lk[s], key);
+    key = max(lk[s], key);
+    lk[s] = lo;
+  }
+}
+
+// a[j], j the same or not in every lane, by selects (a register array
+// indexed at run time would go to local memory)
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&a)[N], int j) {
+  T v = a[0];
+#pragma unroll
+  for (int t = 1; t < N; ++t) v = j == t ? a[t] : v;
+  return v;
+}
+
+// A warp's queries, their bounds and their lists (module note). Pass 1
+// keeps each lane's nearest (distance, first index of its quad) per query
+// (K5p: its least key); bound() makes the K-th smallest of the warp's 32 the
+// query's bound (bd, bi) (K5p: bk); pass 2 offers each candidate at or below
+// it, and below the list's K-th, to the query's list. Every lane holds the
+// same copy of each list, ascending (K5, K8: distances ld, indices li; K5p:
+// keys in li).
+template <int K, int F>
+struct WarpLists {
+  float px[kWarpQueries], py[kWarpQueries], pz[kWarpQueries];
+  float m[kWarpQueries];    // pass 1: the lane's nearest
+  int mq[kWarpQueries];     //         and the first index of its quad; K5p: the least key
+  float bd[kWarpQueries];   // the bound: K5, K8 (bd, bi); K5p bk
+  int bi[kWarpQueries];
+  int bk[kWarpQueries];
+  int n_pairs;              // the (query, hit lane) pairs of pass 2
+  int pj[kWarpQueries];     // the lane's pair of round r: query pj[r], hit lane pl[r]
+  int pl[kWarpQueries];     // (pl[r] < 0: none)
+  float ld[kWarpQueries][K];
+  int li[kWarpQueries][K];
+
+  __device__ __forceinline__ void init(const float* __restrict__ q, int q0, int Q) {
+#pragma unroll
+    for (int j = 0; j < kWarpQueries; ++j) {
+      const int qi = min(q0 + j, Q - 1);  // a query past Q repeats the last; never written
+      px[j] = q[3 * qi];
+      py[j] = q[3 * qi + 1];
+      pz[j] = q[3 * qi + 2];
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        ld[j][s] = kBig;
+        li[j][s] = F == kPacked ? kPackedSentinel : 0;
+      }
+    }
+  }
+
+  // Pass 1, one quad a lane (candidates qfirst ... qfirst + 3 of the chunk
+  // sc, which holds candidates base ... base + n - 1; Tail: past n masked).
+  // A lane's quads come in ascending order, so the strict < keeps the lowest
+  // quad of a tie.
+  template <bool Tail>
+  __device__ __forceinline__ void scan(const float* __restrict__ sc, int m0, int n, int base,
+                                       int lane) {
+    const float4* p = reinterpret_cast<const float4*>(sc) + 3 * (m0 + lane);
+    const float4 u = p[0], v = p[1], w = p[2];
+    const float cx[4] = {u.x, u.w, v.z, w.y};
+    const float cy[4] = {u.y, v.x, v.w, w.z};
+    const float cz[4] = {u.z, v.y, w.x, w.w};
+    const int qfirst = base + 4 * (m0 + lane);
+#pragma unroll
+    for (int j = 0; j < kWarpQueries; ++j) {
+      float d[4];
+      int key[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        d[e] = sqd_qc(px[j], py[j], pz[j], cx[e], cy[e], cz[e]);
+        key[e] = (__float_as_int(d[e]) & ~kLowBits) | (qfirst + e);
+        if (Tail && 4 * (m0 + lane) + e >= n) {
+          d[e] = kInf;
+          key[e] = INT_MAX;
+        }
+      }
+      if constexpr (F == kPacked) {
+        mq[j] = min(mq[j], min(min(key[0], key[1]), min(key[2], key[3])));
+      } else {
+        const float dmin = fminf(fminf(d[0], d[1]), fminf(d[2], d[3]));
+        mq[j] = dmin < m[j] ? qfirst : mq[j];
+        m[j] = fminf(m[j], dmin);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void start_pass1() {
+#pragma unroll
+    for (int j = 0; j < kWarpQueries; ++j) {
+      m[j] = kInf;
+      mq[j] = INT_MAX;
+    }
+  }
+
+  // After pass 1: the K-th smallest of the lanes' (nearest, quad) pairs, by
+  // K rounds of two warp minima (a distance's bits order as unsigned: it is
+  // +0 or more, or NaN). K distinct candidates lie at or below (its
+  // distance, its quad's last index), so the query's K nearest do too, and
+  // only the lanes whose pair is at or below the K-th (the hit lanes) can
+  // hold one. K5p: the K-th smallest of the lanes' least keys, K distinct
+  // keys. Then pass 2's pairs (query j, hit lane l), in query order, 32 a
+  // round: this lane's of each round.
+  __device__ __forceinline__ void bound(int lane) {
+    unsigned hit[kWarpQueries];
+#pragma unroll
+    for (int j = 0; j < kWarpQueries; ++j) {
+      if constexpr (F == kPacked) {
+        bk[j] = static_cast<int>(
+            warp_kth_unsigned<K>(static_cast<unsigned>(mq[j]) ^ 0x80000000u, lane) ^ 0x80000000u);
+        hit[j] = __ballot_sync(kFull, mq[j] <= bk[j]);
+      } else {
+        unsigned v = __float_as_uint(m[j]);
+        int qi = mq[j];
+        unsigned least = 0;
+        int qmin = 0;
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          least = __reduce_min_sync(kFull, v);
+          qmin = static_cast<int>(
+              __reduce_min_sync(kFull, v == least ? static_cast<unsigned>(qi) : 0xffffffffu));
+          if (v == least && qi == qmin) v = 0xffffffffu;  // the holder drops it
+        }
+        // fewer than K lanes with a candidate: no bound (+inf)
+        bd[j] = least == 0xffffffffu ? kInf : __uint_as_float(least);
+        bi[j] = qmin > INT_MAX - 3 ? INT_MAX : qmin + 3;
+        hit[j] = __ballot_sync(kFull, !lex_less(bd[j], qmin, m[j], mq[j]));
+      }
+    }
+    n_pairs = 0;
+#pragma unroll
+    for (int r = 0; r < kWarpQueries; ++r) {
+      pj[r] = 0;
+      pl[r] = -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kWarpQueries; ++j) {
+      const int c = __popc(hit[j]);
+#pragma unroll
+      for (int r = 0; r < kWarpQueries; ++r) {
+        const int off = 32 * r + lane - n_pairs;  // this lane's place in query j's hit lanes
+        if (off >= 0 && off < c) {
+          unsigned mm = hit[j];
+          for (int k = 0; k < off; ++k) mm &= mm - 1;
+          pj[r] = j;
+          pl[r] = __ffs(mm) - 1;
+        }
+      }
+      n_pairs += c;
+    }
+  }
+
+  // (d, i), or the key i, to list j, the same in every lane
+  __device__ __forceinline__ void offer(int j, float d, int i) {
+#pragma unroll
+    for (int t = 0; t < kWarpQueries; ++t) {
+      if (t != j) continue;
+      if constexpr (F == kPacked) {
+        if (i < li[t][K - 1]) insert_key<K>(i, li[t]);
+      } else if (lex_less(d, i, ld[t][K - 1], li[t][K - 1])) {
+        insert_lex<K>(d, i, ld[t], li[t]);
+      }
+    }
+  }
+
+  // Query j's distance (K5p: key) to candidate e of quad m of the chunk sc
+  // (candidate base + 4 m + e), +inf (INT_MAX) past n
+  template <bool Tail>
+  __device__ __forceinline__ void value(const float* __restrict__ sc, int m, int e, int n,
+                                        int base, float qx, float qy, float qz, float& d,
+                                        int& key) const {
+    const float* c3 = sc + 3 * (4 * m + e);
+    d = sqd_qc(qx, qy, qz, c3[0], c3[1], c3[2]);
+    key = (__float_as_int(d) & ~kLowBits) | (base + 4 * m + e);
+    if (Tail && 4 * m + e >= n) {
+      d = kInf;
+      key = INT_MAX;
+    }
+  }
+
+  // Pass 2 over a chunk: lane L takes pair 32 r + L (query j, hit lane l)
+  // and marks each of lane l's 8 quads of the chunk whose nearest to query j
+  // is at or below the bound (one compare a quad); a marked quad's 4
+  // candidates are then recomputed by every lane (the same values in each)
+  // and those at or below the bound offered, rarely.
+  template <bool Tail>
+  __device__ __forceinline__ void rescan(const float* __restrict__ sc, int n, int base, int lane) {
+    constexpr int kQuads = kChunk / 128;  // a lane's quads in a chunk
+#pragma unroll
+    for (int r = 0; r < kWarpQueries; ++r) {  // at most 32 lanes a query
+      if (32 * r >= n_pairs) break;
+      const int j = pj[r], l = pl[r];
+      const float qx = pick(px, j), qy = pick(py, j), qz = pick(pz, j);
+      const float b_d = pick(bd, j);
+      const int b_i = pick(bi, j), b_k = pick(bk, j);
+      unsigned mark = 0;  // bit it: quad l + 32 it
+      if (l >= 0) {
+#pragma unroll
+        for (int it = 0; it < kQuads; ++it) {
+          const int m = l + 32 * it;
+          const float4* p = reinterpret_cast<const float4*>(sc) + 3 * m;
+          const float4 u = p[0], v = p[1], w = p[2];
+          const float cx[4] = {u.x, u.w, v.z, w.y};
+          const float cy[4] = {u.y, v.x, v.w, w.z};
+          const float cz[4] = {u.z, v.y, w.x, w.w};
+          float d[4];
+          int key[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            d[e] = sqd_qc(qx, qy, qz, cx[e], cy[e], cz[e]);
+            key[e] = (__float_as_int(d[e]) & ~kLowBits) | (base + 4 * m + e);
+            if (Tail && 4 * m + e >= n) {
+              d[e] = kInf;
+              key[e] = INT_MAX;
+            }
+          }
+          // a quad whose nearest ties the bound can hold a candidate at or
+          // below it only if its first index is (a window of equal
+          // distances, masked points baked to one place, then marks none)
+          const float dmin = fminf(fminf(d[0], d[1]), fminf(d[2], d[3]));
+          const bool in = F == kPacked
+                              ? min(min(key[0], key[1]), min(key[2], key[3])) <= b_k
+                              : dmin < b_d || (dmin == b_d && base + 4 * m <= b_i);
+          mark |= static_cast<unsigned>(in) << it;
+        }
+      }
+      for (unsigned lanes = __ballot_sync(kFull, mark != 0); lanes != 0; lanes &= lanes - 1) {
+        const int s = __ffs(lanes) - 1;
+        const int js = __shfl_sync(kFull, j, s);
+        const int ls = __shfl_sync(kFull, l, s);
+        for (unsigned bits = __shfl_sync(kFull, mark, s); bits != 0; bits &= bits - 1) {
+          const int ms = ls + 32 * (__ffs(bits) - 1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float d;
+            int key;
+            value<Tail>(sc, ms, e, n, base, pick(px, js), pick(py, js), pick(pz, js), d, key);
+            const int idx = base + 4 * ms + e;
+            if (F == kPacked ? key <= pick(bk, js) : !lex_less(pick(bd, js), pick(bi, js), d, idx))
+              offer(js, d, F == kPacked ? key : idx);
+          }
+        }
+      }
+    }
+  }
+};
+
+// dynamic shared memory: a window of kWindow chunks; after both passes,
+// the leader's holds the lists of the cluster's other blocks
+constexpr size_t kDenseSmem = sizeof(float) * 3 * kWindow * kChunk;
+static_assert(sizeof(float) * 2 * (kMaxCluster - 1) * kBlockQueries * kMaxK <= kDenseSmem,
+              "the merge area must fit the window");
+
+// Grid: (query groups x S) blocks in clusters of S; cluster g searches
+// queries g * kBlockQueries ... for the candidates, block r of it its piece.
+template <int K, int F>
+__global__ void __launch_bounds__(kDenseThreads) topk_kernel(
+    const float* __restrict__ q, const float* __restrict__ c, float* __restrict__ out_d,
+    int* __restrict__ out_i, float* __restrict__ out_c, int Q, int C) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* window = reinterpret_cast<float*>(smem);  // (kWindow, kChunk, 3)
+  __shared__ __align__(8) unsigned long long full[kWindow];  // a window chunk has landed
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int S = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  const int q0 = (blockIdx.x / S) * kBlockQueries + warp * kWarpQueries;
+  // block r's piece: chunks r, r + S, r + 2S, ..., in windows of kWindow
+  const int n_local = ((C + kChunk - 1) / kChunk - rank + S - 1) / S;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWindow; ++s) bar_init(smem_addr(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  WarpLists<K, F> w;
+  w.init(q, q0, Q);
+  for (int w0 = 0; w0 < n_local; w0 += kWindow) {
+    const int n_win = min(kWindow, n_local - w0);
+    const unsigned parity = (w0 / kWindow) & 1;
+    // the window's chunks, all at once: the 16-byte multiple by a bulk copy,
+    // the last 1-3 floats of a short last chunk by this thread
+    if (threadIdx.x == 0) {
+      // the generic-proxy reads of the window before (ordered by the block
+      // barrier below) come before these bulk copies into it
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      for (int t = 0; t < n_win; ++t) {
+        const long long first = static_cast<long long>(rank + (w0 + t) * S) * kChunk;
+        const unsigned bytes =
+            12u * static_cast<unsigned>(min(static_cast<long long>(kChunk), C - first));
+        const unsigned bulk = bytes & ~15u;
+        float* dst = window + t * 3 * kChunk;
+        const float* src = c + 3 * first;
+        for (unsigned f = bulk / 4; f < bytes / 4; ++f) dst[f] = src[f];
+        bar_arrive_expect(smem_addr(&full[t]), bulk);
+        if (bulk != 0) bulk_copy(smem_addr(dst), src, bulk, smem_addr(&full[t]));
+      }
+    }
+    w.start_pass1();
+    // pass 1, each chunk as it lands
+    for (int t = 0; t < n_win; ++t) {
+      bar_wait(smem_addr(&full[t]), parity);
+      const float* sc = window + t * 3 * kChunk;
+      const int base = (rank + (w0 + t) * S) * kChunk;
+      const int n = min(kChunk, C - base);
+      if (n == kChunk) {
+#pragma unroll 1
+        for (int m0 = 0; m0 < kChunk / 4; m0 += 32) w.template scan<false>(sc, m0, n, base, lane);
+      } else {
+#pragma unroll 1
+        for (int m0 = 0; m0 < (n + 3) / 4; m0 += 32) w.template scan<true>(sc, m0, n, base, lane);
+      }
+    }
+    // the bounds, then pass 2 over the resident window
+    w.bound(lane);
+    for (int t = 0; t < n_win; ++t) {
+      const float* sc = window + t * 3 * kChunk;
+      const int base = (rank + (w0 + t) * S) * kChunk;
+      const int n = min(kChunk, C - base);
+      if (n == kChunk) {
+        w.template rescan<false>(sc, n, base, lane);
+      } else {
+        w.template rescan<true>(sc, n, base, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with the window before it is refilled
+  }
+
+  // ---- the cluster's lists into its leader's window, merged there ----
+  // the first barrier: every block of the cluster has finished its piece
+  // (and so has started) and its window is free
+  float* md = window;                                                  // (S - 1, kBlockQueries, K)
+  int* mi = reinterpret_cast<int*>(md + (kMaxCluster - 1) * kBlockQueries * K);
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;"
+               ::: "memory");
+  if (rank != 0 && lane < K) {  // lane s: slot s of each list
+#pragma unroll
+    for (int j = 0; j < kWarpQueries; ++j) {
+      const int o = (((rank - 1) * kDenseWarps + warp) * kWarpQueries + j) * K + lane;
+      store_in_block(smem_addr(md + o), 0, __float_as_uint(pick(w.ld[j], lane)));
+      store_in_block(smem_addr(mi + o), 0, static_cast<unsigned>(pick(w.li[j], lane)));
+    }
+  }
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;"
+               ::: "memory");
+  if (rank != 0) return;
+  for (int r = 1; r < S; ++r) {
+#pragma unroll
+    for (int j = 0; j < kWarpQueries; ++j) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const int o = (((r - 1) * kDenseWarps + warp) * kWarpQueries + j) * K + s;
+        w.offer(j, md[o], mi[o]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kWarpQueries; ++j) {  // lane s writes slot s
+    if (q0 + j >= Q || lane >= K) continue;
+    const long long o = static_cast<long long>(q0 + j) * K + lane;
+    const float d = pick(w.ld[j], lane);
+    const int i = pick(w.li[j], lane);
+    if constexpr (F == kPacked) {
+      out_d[o] = __int_as_float(i & ~kLowBits);
+      out_i[o] = i & kLowBits;
+    } else if constexpr (F == kCoords) {
+      // a filled slot (below the 1e30 start) takes its candidate's
+      // coordinates; its distance reads 1e30 above 1e29, as on the TPU
+      out_d[o] = d > kFar ? kBig : d;
+      for (int k = 0; k < 3; ++k) out_c[3 * o + k] = d < kBig ? c[3LL * i + k] : 0.0f;
+      if (out_i != nullptr) out_i[o] = i;
+    } else {
+      out_d[o] = d;
+      out_i[o] = i;
+    }
+  }
+}
+
+// The cluster size S: as many pieces as let the grid's blocks all be
+// resident at once (at least 1, at most kMaxCluster and the chunk count).
+template <int K, int F>
+cudaError_t launch_dense(const void* q, const void* c, void* out_d, void* out_i, void* out_c,
+                         int Q, int C, cudaStream_t stream) {
+  constexpr size_t smem = kDenseSmem;
+  static int per_sm = 0;  // resident blocks an SM, found once
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(topk_kernel<K, F>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_kernel<K, F>, kDenseThreads,
+                                                      smem);
+    if (e != cudaSuccess) return e;
+    per_sm = per_sm < 1 ? 1 : per_sm;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int groups = (Q + kBlockQueries - 1) / kBlockQueries;
+  const int n_chunks = (C + kChunk - 1) / kChunk;
+  const int S = max(1, min(min(kMaxCluster, n_chunks), sms * per_sm / groups));
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * S);
+  cfg.blockDim = dim3(kDenseThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, topk_kernel<K, F>, static_cast<const float*>(q),
+                            static_cast<const float*>(c), static_cast<float*>(out_d),
+                            static_cast<int*>(out_i), static_cast<float*>(out_c), Q, C);
+}
+
+template <int K>
+cudaError_t launch_dense_k(int form, const void* q, const void* c, void* out_d, void* out_i,
+                           void* out_c, int Q, int C, cudaStream_t stream) {
+  switch (form) {
+    case kPacked: return launch_dense<K, kPacked>(q, c, out_d, out_i, out_c, Q, C, stream);
+    case kCoords: return launch_dense<K, kCoords>(q, c, out_d, out_i, out_c, Q, C, stream);
+    default: return launch_dense<K, kIndex>(q, c, out_d, out_i, out_c, Q, C, stream);
+  }
+}
+
 }  // namespace
 
-// q (Q, 3), c (C, 3) float32; q_keys (Q,), c_keys (C,) int32 (windowed only,
-// else may be null) -> out_d (Q, k) float32, out_i (Q, k) int32 and, for K8,
-// out_c (Q, k, 3) float32 (else null; with it out_i may be null).
-// windowed: Q % q_tile == 0 and C % c_tile == 0 (the caller checks); dense:
-// any Q and C, q_tile unused. packed (K5p): dense, out_c null, C <= 32768.
-extern "C" int lvo_block_topk(const void* q, const void* q_keys, const void* c,
-                              const void* c_keys, void* out_d, void* out_i, void* out_c,
-                              int Q, int C, int k, int q_tile, int c_tile, int reach,
-                              int windowed, int packed, void* stream) {
-  if (Q <= 0 || C <= 0 || q_tile <= 0 || c_tile <= 0 || k < 1 || k > kMaxK)
+// K5, K8, K5p. q (Q, 3), c (C, 3) float32, c 16-byte aligned -> out_d (Q, k)
+// float32, out_i (Q, k) int32 and, for K8, out_c (Q, k, 3) float32 (else
+// null; with it out_i may be null). packed (K5p): out_c null, C <= 32768.
+// One launch on the stream.
+extern "C" int lvo_block_topk(const void* q, const void* c, void* out_d, void* out_i, void* out_c,
+                              int Q, int C, int k, int packed, void* stream) {
+  if (Q <= 0 || C <= 0 || k < 1 || k > kMaxK || reinterpret_cast<uintptr_t>(c) % 16 != 0)
     return cudaErrorInvalidValue;
   if ((out_i == nullptr && out_c == nullptr) ||
-      (packed && (windowed || out_c != nullptr || out_i == nullptr || C > kLowBits + 1)) ||
-      (windowed && out_c != nullptr))
+      (packed && (out_c != nullptr || out_i == nullptr || C > kLowBits + 1)))
     return cudaErrorInvalidValue;
+  const int form = packed ? kPacked : out_c != nullptr ? kCoords : kIndex;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LVO_TOPK_CASE(K)                                                                  \
-  case K:                                                                                \
-    return launch_k<K>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile, c_tile, \
-                       reach, windowed, packed, s);
+#define LVO_TOPK_CASE(K) \
+  case K:                \
+    return launch_dense_k<K>(form, q, c, out_d, out_i, out_c, Q, C, s);
   switch (k) {
     LVO_TOPK_CASE(1)
     LVO_TOPK_CASE(2)
@@ -628,11 +961,11 @@ extern "C" int lvo_block_topk(const void* q, const void* q_keys, const void* c,
     LVO_TOPK_CASE(5)
     LVO_TOPK_CASE(6)
     LVO_TOPK_CASE(7)
-    default: return launch_k<8>(q, q_keys, c, c_keys, out_d, out_i, out_c, Q, C, q_tile,
-                                c_tile, reach, windowed, packed, s);
+    default: return launch_dense_k<8>(form, q, c, out_d, out_i, out_c, Q, C, s);
   }
 #undef LVO_TOPK_CASE
 }
+
 
 // K4. q (Q, 3) with q_keys (Q,), c (C, 3) sorted by key with c_keys (C,)
 // -> out_d (Q, k) float32, out_i (Q, k) int32. ranges: (C / c_tile +

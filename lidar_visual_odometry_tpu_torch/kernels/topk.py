@@ -35,8 +35,9 @@ its K5p returns INT_MAX keys, NaN distances, from the second unfilled slot on;
 the port's unfilled slots are zero and ``PACKED_SENTINEL``.)
 
 A CUDA tensor goes to the hand-written kernels of ``csrc/topk.cu`` (the
-windowed form to a pair of its own, a range pre-pass and the search: two
-launches, counted as one call); a CPU tensor goes to the plain version
+dense forms to one launch of ``topk_kernel``, a thread-block cluster a group
+of queries; the windowed form to a pair of its own, a range pre-pass and the
+search: two launches, counted as one call); a CPU tensor goes to the plain version
 (``block_topk_windowed_plain`` applies the same (tile, chunk) rule, so the two
 agree element by element). Each wrapper counts its calls that launch, K5p
 apart from K5.
@@ -61,7 +62,6 @@ PACKED_SENTINEL = int((np.float32(1e30).view(np.int32) & ~_LOW) | _LOW)
 #: K5p: the most candidates a packed key can index
 PACKED_MAX_C = _LOW + 1
 _Q_BLOCK = 256  # plain dense version: queries per distance block
-DENSE_CHUNK = 512  # the dense kernel's candidates per shared-memory stage
 
 #: launches of the CUDA kernel by ``block_topk`` since the last reset
 launches = 0
@@ -196,7 +196,7 @@ def block_topk_windowed_plain(q_xyz, q_keys, c_sorted, c_keys, *, k: int = 5,
 
 #: the C launchers of ``csrc/topk.cu`` by name, with their ctypes argument types
 _ARGTYPES = {
-    "lvo_block_topk": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "lvo_block_topk": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "lvo_block_topk_windowed": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
@@ -218,8 +218,12 @@ def _check_tensors(name, tensors, k):
 
 
 def _launch(name, q_xyz, c, k, packed=False, coords=False):
-    """The dense forms (K5, K5p, K8): one launch of ``topk_kernel``."""
+    """The dense forms (K5, K5p, K8): one launch of ``topk_kernel``. Its bulk
+    copies read ``c`` from a 16-byte aligned address: a view that starts
+    elsewhere is copied first."""
     _check_tensors(name, (q_xyz, c), k)
+    if c.data_ptr() % 16:
+        c = c.clone()
     Q, C = q_xyz.shape[0], c.shape[0]
     d = torch.empty((Q, k), dtype=torch.float32, device=q_xyz.device)
     if coords:
@@ -229,8 +233,7 @@ def _launch(name, q_xyz, c, k, packed=False, coords=False):
         out = torch.empty((Q, k), dtype=torch.int32, device=q_xyz.device)
         ptrs = (out.data_ptr(), None)
     rc = _launcher("lvo_block_topk")(
-        q_xyz.data_ptr(), None, c.data_ptr(), None, d.data_ptr(), *ptrs,
-        Q, C, k, 1, DENSE_CHUNK, 0, 0, int(packed),
+        q_xyz.data_ptr(), c.data_ptr(), d.data_ptr(), *ptrs, Q, C, k, int(packed),
         _build.stream(q_xyz))
     _build.check(rc, name)
     return d, out
@@ -289,8 +292,7 @@ def block_topk(q_xyz: torch.Tensor, c_baked: torch.Tensor, *, k: int = 5,
                packed: bool = False):
     """Dense k-NN: (dist (Q, k), index (Q, k)) into ``c_baked`` (C, 3), masked
     points baked to BAKE_FAR. Any Q and C. ``packed=True`` orders by the
-    packed key (module note) when C ≤ 32768 and is ignored above. (The card
-    stages candidates in chunks of ``DENSE_CHUNK``.)"""
+    packed key (module note) when C ≤ 32768 and is ignored above."""
     _check_points("block_topk", q_xyz, c_baked)
     packed = packed and c_baked.shape[0] <= PACKED_MAX_C   # the index must fit 15 bits
     if q_xyz.device.type == "cpu":

@@ -83,7 +83,10 @@ class VisualChunkState(NamedTuple):
     prev_dc: DepthCloud
 
 
-def empty_table(n: int, device="cpu") -> FeatureTable:
+def empty_table(n: int, device="cuda") -> FeatureTable:
+    """An unused table of ``n`` slots on ``device`` (the card unless the
+    caller asks for the CPU; raises without a card)."""
+    device = resolve_device(device)
     return FeatureTable(
         uv=torch.zeros((n, 2), device=device),
         active=torch.zeros((n,), dtype=torch.bool, device=device),

@@ -11,6 +11,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 @dataclass(frozen=True)
 class Pinhole:
@@ -25,7 +27,11 @@ class Pinhole:
     dist: torch.Tensor
 
     @staticmethod
-    def from_config(cam, device="cpu") -> "Pinhole":
+    def from_config(cam, device="cuda") -> "Pinhole":
+        """The camera of a ``CameraConfig``, its distortion on ``device``
+        (the card unless the caller asks for the CPU; raises without a
+        card)."""
+        device = resolve_device(device)
         return Pinhole(
             float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
             cam.width, cam.height,

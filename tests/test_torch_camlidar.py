@@ -109,7 +109,7 @@ def jax_runs(seq_data):
 @pytest.fixture(scope="module")
 def port_cfg():
     cfg = _config(tcfg)
-    return cfg, tcam.Pinhole.from_config(cfg.camera)
+    return cfg, tcam.Pinhole.from_config(cfg.camera, device="cpu")
 
 
 # ------------------------------------------------------------ depth, poses --
@@ -223,7 +223,7 @@ def test_replenish_matches_jax(jax_runs, port_cfg):
     step: the same candidates in the same slots."""
     cfg, cam = port_cfg
     st0 = _state_to_torch(jax_runs["state0"])
-    empty = vf.empty_table(cfg.visual.max_tracked)
+    empty = vf.empty_table(cfg.visual.max_tracked, device="cpu")
     tab = vf._replenish(empty, st0.prev_pyr[0], cam, se3.identity_pose("cpu"), cfg.visual)
     for a, b in zip(jax_runs["state0"].table, tab):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))

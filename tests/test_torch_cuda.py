@@ -369,6 +369,80 @@ def test_block_topk_packed_above_32768_launches_k5(dev, gen):
     torch.testing.assert_close(i, ip, rtol=0, atol=0)
 
 
+def _tie_cloud(gen, Q, C, reach=3):
+    """Queries and candidates on a 1/8 grid within ±reach, so every distance
+    is exact; the candidates are at most 300 distinct points repeated in
+    shuffled copies, so that exact ties of distance and of position lie in
+    different staged chunks and in different cluster pieces; a tenth of them
+    masked (baked far)."""
+    uniq = gen.integers(-8 * reach, 8 * reach + 1, size=(max(1, min(C, 300)), 3)) / 8
+    copies = [uniq[gen.permutation(len(uniq))] for _ in range(-(-C // len(uniq)))]
+    c = np.concatenate(copies)[:C].astype(np.float32)
+    q = (gen.integers(-8 * reach, 8 * reach + 1, size=(Q, 3)) / 8).astype(np.float32)
+    return q, c, gen.uniform(size=C) > 0.1
+
+
+def _dense_forms_bit_for_bit(q, baked, k):
+    """K5, K8 and K5p on the card, one launch each (K5p with C > 32768 is
+    K5), against their plain versions bit for bit; returns the three outputs."""
+    C = baked.shape[0]
+    kernels.reset_launch_counts()
+    got = (ktop.block_topk(q, baked, k=k), ktop.block_topk_coords(q, baked, k=k),
+           ktop.block_topk(q, baked, k=k, packed=True))
+    counts = kernels.launch_counts()
+    packed = C <= ktop.PACKED_MAX_C
+    assert counts["block_topk"] == (1 if packed else 2) and counts["block_topk_coords"] == 1
+    assert counts["block_topk_packed"] == (1 if packed else 0)
+    want = (ktop.block_topk_plain(q, baked, k=k), ktop.block_topk_coords_plain(q, baked, k=k),
+            (ktop.block_topk_packed_plain if packed else ktop.block_topk_plain)(q, baked, k=k))
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+    return got
+
+
+@pytest.mark.parametrize("Q,C,k", [
+    (4096, 32768, 5),     # the surf call's shape, K5p's largest C
+    (4096, 32769, 5),     # one candidate too many for a packed key: K5p is K5
+    (4096, 16384, 8),     # the corner call's shape
+    (64, 32768, 5),       # two query groups: eight cluster pieces
+    (1000, 5003, 1),      # Q and C not multiples of the block's queries or the chunk
+    (777, 2049, 8),       # a last chunk of one candidate
+    (33, 3, 5),           # fewer candidates than k and than pieces
+    (5, 1, 8),
+])
+def test_dense_topk_ties_across_pieces_bit_for_bit(dev, gen, Q, C, k):
+    """The redesigned dense kernel (K5, K8, K5p) on exact ties spread over
+    chunks and cluster pieces: the plain versions' bits, so the split and
+    the merge keep the lower index."""
+    q, c, m = _tie_cloud(gen, Q, C)
+    q, c, m = _on(dev, q, c, m)
+    d, i = _dense_forms_bit_for_bit(q, knn_k.bake_mask(c, m).contiguous(), k)[0]
+    if k > 1 and C >= 2 * k:
+        assert bool((d[:, 1:] == d[:, :-1]).any())          # ties were exercised
+
+
+def test_dense_topk_repeated_second_stream_and_unaligned(dev, gen):
+    """Three calls, a call on a second stream and a candidate view that
+    starts 12 bytes into its storage (copied to a 16-byte boundary for the
+    bulk copies): the same bits every time."""
+    q, c, m = _tie_cloud(gen, 4096, 32769)
+    q, c, m = _on(dev, q, c, m)
+    baked = knn_k.bake_mask(c, m).contiguous()
+    first = _dense_forms_bit_for_bit(q, baked[1:], 5)
+    for _ in range(2):
+        again = _dense_forms_bit_for_bit(q, baked[1:], 5)
+        assert all(torch.equal(a, b) for g, w in zip(again, first) for a, b in zip(g, w))
+    view = baked[1:]
+    assert view.data_ptr() % 16 == 12
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        on_side = (ktop.block_topk(q, view, k=5), ktop.block_topk_coords(q, view, k=5),
+                   ktop.block_topk(q, view, k=5, packed=True))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert all(torch.equal(a, b) for g, w in zip(on_side, first) for a, b in zip(g, w))
+
+
 def test_gn_inner_loop_matches_plain(dev, gen):
     ne, npl = 768, 1536
     pts = [gen.uniform(-10, 10, (3, n)).astype(np.float32) for n in (ne,) * 3 + (npl,) * 4]

@@ -354,3 +354,32 @@ def test_block_topk_coords_sentinels():
     np.testing.assert_array_equal(d.numpy(), np.asarray(d_j))
     np.testing.assert_array_equal(co.numpy(), np.asarray(co_j))
     assert d[0, 0] == np.float32(1e30) and co[0, 0].tolist() == [1.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("form", ["index", "packed", "coords"])
+def test_dense_topk_plain_matches_pallas_on_ties(rng, form):
+    """K5, K5p and K8's plain versions against the Pallas kernels (interpret
+    mode) on exact ties: candidates on a 1/8 grid, 100 distinct points
+    repeated in shuffled copies across the reference's four 256-candidate
+    chunks (the card's kernel splits and merges across chunks and cluster
+    pieces; this holds the rule both must keep). K5 and K5p: distances and
+    indices bit for bit, ties to the lower index; K8: distances and
+    coordinates bit for bit (its reference returns no index)."""
+    Q, C, k = 256, 1024, 5
+    uniq = _grid(rng, (100, 3), reach=3)
+    c = np.concatenate([uniq[rng.permutation(100)] for _ in range(-(-C // 100))])[:C]
+    q = _grid(rng, (Q, 3), reach=3)
+    baked = _baked(c, rng.uniform(size=C) > 0.1)
+    args_j = (jnp.asarray(q), jnp.asarray(baked))
+    kw = dict(k=k, q_tile=128, c_tile=256, interpret=True)
+    if form == "coords":
+        d_j, c_j = pallas_nn.block_topk_coords(*args_j, **kw)
+        d_t, c_t = ktop.block_topk_coords_plain(_t(q), _t(baked), k=k)
+        np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    else:
+        d_j, i_j = pallas_nn.block_topk(*args_j, packed=form == "packed", **kw)
+        plain = ktop.block_topk_packed_plain if form == "packed" else ktop.block_topk_plain
+        d_t, i_t = plain(_t(q), _t(baked), k=k)
+        np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    assert bool((d_t[:, 1:] == d_t[:, :-1]).any())                # ties were exercised

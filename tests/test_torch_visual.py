@@ -83,10 +83,28 @@ def _t(x):
 
 # ---------------------------------------------------------------- camera --
 
+@pytest.mark.parametrize("make", ["camera", "feature_table"])
+def test_constructors_default_to_the_card(monkeypatch, make):
+    """``Pinhole.from_config`` and ``visual_frontend.empty_table`` place their
+    tensors on the card unless the caller asks for the CPU, and raise where
+    there is no card (here made so by the test), as the other entry points do."""
+    from lidar_visual_odometry_tpu_torch.models import visual_frontend as tvf
+    from lidar_visual_odometry_tpu_torch.utils import config as tcfg
+
+    fn = {"camera": lambda **kw: tcam.Pinhole.from_config(tcfg.CameraConfig(), **kw),
+          "feature_table": lambda **kw: tvf.empty_table(8, **kw)}[make]
+    cpu = fn(device="cpu")
+    tensor = cpu.dist if make == "camera" else cpu.uv
+    assert tensor.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+
+
 def test_camera_matches_jax(rng):
     cfg = jcfg.CameraConfig(fx=240.0, fy=238.0, cx=320.0, cy=96.0, width=640, height=192,
                             d0=-0.05, d1=0.01, d2=0.001, d3=-0.002, d4=0.0005)
-    jc, tc = jcam.Pinhole.from_config(cfg), tcam.Pinhole.from_config(cfg)
+    jc, tc = jcam.Pinhole.from_config(cfg), tcam.Pinhole.from_config(cfg, device="cpu")
     xyz = rng.normal(size=(500, 3)).astype(np.float32) * [3.0, 1.0, 5.0]
     uv_j, front_j = jax.jit(jcam.project)(jc, jnp.asarray(xyz))
     uv_t, front_t = tcam.project(tc, _t(xyz))

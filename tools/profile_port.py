@@ -19,11 +19,15 @@ pipeline up and measures:
   operators that take the most device time, and the device time per call of
   each of the port's own CUDA kernels on the path. ``slam_dense`` traces the
   SLAM path with ``MappingConfig(windowed_nn=False)`` (kernel K5), no stage
-  times.
+  times, and records its mapped positions. ``knn`` traces ``chip_smoke.py``'s
+  phase 5 (the k-NN entry points off the product path, on every frame, at
+  the poses of one SLAM run) and gives the device time per call of K7 (index
+  and coordinate forms, edge and plane calls apart) and of K5, K8 and K5p
+  (corner and surf calls apart).
 
 Writes ``<out>/profile_port.json`` and prints a summary. Needs a CUDA device.
 
-    python tools/profile_port.py [--frames 17] [--paths odometry,slam,slam_dense,camlidar]
+    python tools/profile_port.py [--frames 17] [--paths odometry,slam,slam_dense,camlidar,knn]
                                  [--out DIR]
 """
 
@@ -49,10 +53,10 @@ def _device_us(evt) -> float:
 
 
 # the port's kernels by their CUDA names: K1's batched and flat forms, K2, K3,
-# K4's range pre-pass and search, K5 and K6
+# K4's range pre-pass and search, K5 (with K8 and K5p), K6 and K7
 PORT_KERNELS = ("segsum_rows_kernel", "segsum_flat_kernel", "assoc_kernel", "gn_kernel",
                 "topk_window_ranges_kernel", "topk_windowed_kernel", "topk_kernel",
-                "lk_level_kernel")
+                "lk_level_kernel", "ring_top2_out_kernel")
 
 
 def _kernel_name(key: str, name: str) -> str:
@@ -73,6 +77,26 @@ def _k2_by_call(kernel_events, frames):
                    "device_ms_per_call": sum(e.time_range.elapsed_us() for e in k2[j::2])
                    / 1e3 / (len(k2) / 2)}
             for j, kind in enumerate(("edges", "planes"))}
+
+
+def _by_call(kernel_events, name, kinds):
+    """Device ms per call of each instance of kernel ``name``, its calls
+    taken in time order as ``kinds`` in turn (the order in which a path
+    calls it), so that calls of one instance at other shapes stay apart."""
+    by_instance = {}
+    for e in kernel_events:
+        if name + "<" in e.name or name + "(" in e.name:
+            by_instance.setdefault(_kernel_name(e.name, name), []).append(e)
+    out = {}
+    for inst, evs in by_instance.items():
+        evs.sort(key=lambda e: e.time_range.start)
+        n = len(evs) // len(kinds)
+        out[inst] = {kind: {"calls": len(evs[j::len(kinds)]),
+                            "device_ms_per_call": sum(e.time_range.elapsed_us()
+                                                      for e in evs[j::len(kinds)])
+                            / 1e3 / max(n, 1)}
+                     for j, kind in enumerate(kinds)}
+    return out
 
 
 def _trace(run, frames):
@@ -112,7 +136,7 @@ def _trace(run, frames):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=17)
-    ap.add_argument("--paths", default="odometry,slam,slam_dense,camlidar")
+    ap.add_argument("--paths", default="odometry,slam,slam_dense,camlidar,knn")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     paths = args.paths.split(",")
@@ -313,8 +337,40 @@ def main() -> int:
         cfg_dense = SystemConfig(mapping=MappingConfig(windowed_nn=False))
         FullPipeline(cfg_dense, device=dev).run_chunked(scans, chunk=8, map_skip=1,
                                                         ingest="polar2")   # warm
-        result["slam_dense"] = _trace(lambda: FullPipeline(cfg_dense, device=dev).run_chunked(
-            scans, chunk=8, map_skip=1, ingest="polar2")[1].positions, n)
+        mapped = {}
+
+        def run_dense():
+            mapped["positions"] = FullPipeline(cfg_dense, device=dev).run_chunked(
+                scans, chunk=8, map_skip=1, ingest="polar2")[1].positions
+            return mapped["positions"]
+
+        result["slam_dense"] = _trace(run_dense, n)
+        result["slam_dense"]["mapped_positions"] = np.asarray(mapped["positions"]).tolist()
+
+    if "knn" in paths:
+        from chip_smoke import phase5_knn
+        from torch.profiler import ProfilerActivity, profile
+
+        odo, mapped = FullPipeline(cfg, device=dev).run_chunked(scans, chunk=8, map_skip=1,
+                                                                ingest="polar2")
+        phase5_knn(scans, odo, mapped, dev)   # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            counts, stats, _ = phase5_knn(scans, odo, mapped, dev)
+            torch.cuda.synchronize()
+        kernel_events = [e for e in prof.events()
+                         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        result["knn"] = {
+            "launches_per_frame": {k: v / n for k, v in counts.items() if v},
+            "stats": stats,
+            # per frame: K7's index form, then its coordinate form, on the
+            # edges, then both on the planes; K5, K8 and K5p on the corner
+            # queries, then on the surf queries
+            "ring_top2_by_call": _by_call(kernel_events, "ring_top2_out_kernel",
+                                          ("index edges", "coords edges", "index planes",
+                                           "coords planes")),
+            "topk_by_call": _by_call(kernel_events, "topk_kernel", ("corner", "surf")),
+        }
 
     if "camlidar" in paths:
         ccfg = camlidar_config()
@@ -334,8 +390,9 @@ def main() -> int:
     print(smi)
     for path in paths:
         r = result[path]
-        print(path, json.dumps({k: v for k, v in r.items() if k != "top_ops_by_device_time"}))
-        for row in r["top_ops_by_device_time"][:15]:
+        print(path, json.dumps({k: v for k, v in r.items()
+                                if k not in ("top_ops_by_device_time", "mapped_positions")}))
+        for row in r.get("top_ops_by_device_time", [])[:15]:
             print(f"  {row['device_ms']:10.3f} ms  {row['calls']:7d} calls  {row['op'][:90]}")
     return 0
 

@@ -26,7 +26,8 @@ Phase 1  holds each kernel against its plain PyTorch version on the card, at
          sides are timed in one state of the host. K2 (edge and plane calls),
          K4 and K5 (corner and surf calls each) are timed so too, each call
          against the other, before their checks; all three must give their
-         plain versions' outputs bit for bit. K3 (1 and 4 iterations, so that an
+         plain versions' outputs bit for bit, and so must K7, whose edge and
+         plane calls are timed so too, each form beside its yardstick. K3 (1 and 4 iterations, so that an
          iteration's cost is on record) and K6 (its four calls) are timed so
          too; K6 must give its plain version's outputs bit for bit, K3 its
          plain version's pose within 1e-4 and the same bits on a second call.
@@ -145,14 +146,16 @@ def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time_alternating_ms(fns, iters: int, rounds: int = 5) -> list[float]:
+def _time_alternating_ms(fns, iters, rounds: int = 5) -> list[float]:
     """``_time_ms`` of each of ``fns`` in ``rounds`` alternating rounds: the
     median round of each. Calls whose time is mostly host time move with the
-    host's state; alternating gives each the same states."""
+    host's state; alternating gives each the same states. ``iters``: one
+    count for all, or one a function."""
+    counts = iters if isinstance(iters, (list, tuple)) else [iters] * len(fns)
     times = [[] for _ in fns]
     for _ in range(rounds):
-        for t, fn in zip(times, fns):
-            t.append(_time_ms(fn, iters))
+        for t, fn, n in zip(times, fns, counts):
+            t.append(_time_ms(fn, n))
     return [float(np.median(t)) for t in times]
 
 
@@ -623,17 +626,34 @@ def phase1_topk_dense(maps, queries, mcfg):
 
 
 def phase1_ring_top2(assoc, coords):
-    """K7 at the odometry association's shapes, in one output form."""
+    """K7 at the odometry association's shapes, in one output form: the edge
+    and plane calls and their yardsticks timed in alternating rounds (median
+    of five) before the checks, which demand the plain version's outputs bit
+    for bit."""
     import torch
 
     from lidar_visual_odometry_tpu_torch.kernels import nn
 
     fn = nn.ring_top2_coords if coords else nn.ring_top2_pallas
     plain = nn.ring_top2_coords_plain if coords else nn.ring_top2_pallas_plain
-    ms = plain_ms = yard_ms = err = 0.0
+    kinds = ("edges", "planes")
+
+    def yardstick(q, c):
+        # for information only: cdist + topk (+ the coordinate gather);
+        # cdist's matrix-product distances round otherwise
+        Q, (R, B, _) = q.shape[0], c.shape
+        top = torch.topk(torch.cdist(q, c.reshape(-1, 3)).reshape(Q, R, B), 2, dim=2,
+                         largest=False)
+        return c[torch.arange(R, device=q.device)[None, :, None], top.indices] if coords else top
+
+    times = _time_alternating_ms([partial(fn, *assoc[kind]) for kind in kinds]
+                                 + [partial(yardstick, *assoc[kind]) for kind in kinds],
+                                 [100, 100, 20, 20])
+    per_call = dict(zip(kinds, times[:2]))
+    plain_ms = err = 0.0
     n_bytes = n_ops = 0
     shapes = []
-    for kind in ("edges", "planes"):
+    for kind in kinds:
         q, c = assoc[kind]
         Q, (R, B, _) = q.shape[0], c.shape
         out, ref = fn(q, c), plain(q, c)
@@ -643,21 +663,10 @@ def phase1_ring_top2(assoc, coords):
         # rules: identical distances, indices and coordinates
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{fn.__name__} disagrees with its plain version ({kind}): {err}")
-        ms += _time_ms(lambda: fn(q, c), 100)
         plain_ms += _time_ms(lambda: plain(q, c), 5)
-        flat = c.reshape(-1, 3)
-
-        def yardstick():
-            # for information only: cdist + topk (+ the coordinate gather);
-            # cdist's matrix-product distances round otherwise
-            top = torch.topk(torch.cdist(q, flat).reshape(Q, R, B), 2, dim=2, largest=False)
-            return flat.reshape(R, B, 3)[torch.arange(R, device=q.device)[None, :, None],
-                                         top.indices] if coords else top
-
-        yard_ms += _time_ms(yardstick, 20)
         n_bytes += 4 * (3 * Q + 3 * R * B + (8 if coords else 4) * Q * R)
         n_ops += 8 * Q * R * B        # 3 sub, 3 mul, 2 add per distance
-        shapes.append(f"{kind} Q={Q} vs ({R},{B},3)")
+        shapes.append(f"{kind} Q={Q} vs ({R},{B},3) {per_call[kind]:.4f} ms")
     bound, by = _bound_ms(n_bytes, n_ops)
     yard_key = "cdist_topk_gather_three_calls_ms" if coords else "cdist_topk_two_calls_ms"
     return {
@@ -665,8 +674,8 @@ def phase1_ring_top2(assoc, coords):
         "source": "lidar_visual_odometry_tpu_torch/csrc/nn.cu",
         "replaces": ("lidar_visual_odometry_tpu/ops/pallas_nn.py:696" if coords
                      else "lidar_visual_odometry_tpu/ops/pallas_nn.py:85"),
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None, yard_key: yard_ms,
+        "max_abs_err": err, "ms": sum(per_call.values()), "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None, yard_key: sum(times[2:]),
         "shapes": f"frame {MAP_FRAMES} against frame {MAP_FRAMES - 1}, true relative pose: "
                   + ", ".join(shapes),
         "tolerance": "exact (atol 0), identical indices" + (" and coordinates" if coords else ""),

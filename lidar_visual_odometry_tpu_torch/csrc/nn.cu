@@ -6,7 +6,7 @@
 //    (_assoc_kernel).
 //  * K7, per-ring top-2 (lvo_ring_top2): the first stage of K2 alone, with its
 //    own outputs. Replaces pallas_nn.py ring_top2_pallas / ring_top2_coords
-//    (_ring_top2_call, _ring_top2_kernel); see the note at lvo_ring_top2.
+//    (_ring_top2_call, _ring_top2_kernel); its note follows K2's.
 //
 // K2. Inputs: queries q (Q, 3) and ring-blocked
 // candidates c (R, B, 3) whose masked points were moved to BAKE_FAR by the
@@ -44,6 +44,40 @@
 // Keeping only minima in the first pass takes the index and runner-up
 // bookkeeping (about half the instructions a pair) out of the hot loop.
 //
+// K7. Inputs as K2's; outputs dist (Q, R, 2) and either idx (Q, R, 2), flat
+// into R * B, or the winners' coordinates c1, c2 (Q, R, 3): the exact
+// (distance, index) top-2 of every (query, ring), so it cannot drop K2's
+// bookkeeping. Off the product path; shapes as K2's.
+//
+// What bounds it on an H100: instructions. The table's bound counts the 8
+// float32 operations a pair at 67 T a second (0.0067 ms for both path
+// calls), but unfused operations issue at half that rate, ~33.5 T a second
+// on 132 SMs at 1.98 GHz, and the exact top-2 costs more again: updated
+// candidate by candidate, two compares, three min/max and three selects a
+// pair, on a pipe of half the float32 rate, so about 16.5 instructions a
+// pair with the loads (~0.025 ms for the planes' 50.3 M pairs, ~0.003 for
+// the edges' 5.9 M). The outputs are 0.8-3.1 MB a call, a microsecond.
+//
+// Design: one launch. A block owns 32 * QPT queries (lane l holds queries
+// l, l + 32, ...: QPT independent chains) and G consecutive rings, each
+// split into S segments of candidate quads, a warp a (ring, segment); QPT
+// and S are chosen at launch so that both path calls give the card ~16
+// warps an SM (top2_config). The G rings are staged in shared memory with
+// cp.async as they lie in memory, in pieces of at most 48 KB (double
+// buffered) when they do not fit one. A warp reads a staged quad with three
+// broadcast float4 loads and folds its four distances into each query's
+// top-2 a quad at a time, with no branch (push_quad): the quad's two
+// smallest values by a min/max network, merged with the running pair by
+// value, the pairs tagged by quad; 4.5 bookkeeping instructions a pair
+// where a candidate-by-candidate update takes 8. Within a segment the quads
+// ascend, so a strict < keeps the first index; at the end of a piece the
+// tags become indices (first_at, two quads a query rescanned). The segments'
+// pairs meet in shared memory, merged lexicographically by (distance,
+// index), which gives the same pair for any S; then the runner-up rule
+// below, once, and the writes, G consecutive rings of a query from
+// neighbouring threads (c1 and c2 read from the staged ring when it is whole
+// in shared memory).
+//
 // Exact rules kept from the TPU kernel: the distance is (c - q) squared per
 // component, summed as (dx^2 + dy^2) + dz^2 with round-to-nearest intrinsics so
 // that nvcc cannot contract it into fused multiply-adds; ties go to the first
@@ -51,7 +85,8 @@
 // the TPU kernel's second arg-min over the ring with the winner set to 1e30:
 // the lexicographic second (distance, index) when that is below 1e30, and
 // (1e30, the first index holding 1e30 after the winner is set to it)
-// otherwise; so B == 1 gives (1e30, 0).
+// otherwise; so B == 1 gives (1e30, 0). A ring whose distances are all +inf
+// (coordinates near 1e19 and beyond) has its winner at index 0, as arg-min.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,68 +98,6 @@
 namespace {
 
 constexpr float kBig = 1e30f;
-
-// ---- K7 ----
-
-constexpr int kQueriesPerBlock = 32;
-constexpr int kRingsPerBlock = 8;
-
-struct Top2 {
-  float d1, d2;
-  int i1, i2;
-};
-
-// The two nearest of one ring's B candidates (cr, (B, 3) row-major) to
-// (qx, qy, qz). Candidate 0 starts as the nearest; the runner-up starts as the TPU
-// kernel's sentinel (the winner's slot set to 1e30), which is what it returns
-// when the ring has no other candidate (B == 1).
-__device__ __forceinline__ Top2 stream_ring(const float* __restrict__ cr, int B, float qx,
-                                            float qy, float qz) {
-  Top2 t{0.0f, kBig, 0, 0};
-  for (int b = 0; b < B; ++b) {
-    const float dx = __fsub_rn(__ldg(cr + 3 * b), qx);
-    const float dy = __fsub_rn(__ldg(cr + 3 * b + 1), qy);
-    const float dz = __fsub_rn(__ldg(cr + 3 * b + 2), qz);
-    const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                              __fmul_rn(dz, dz));
-    if (b == 0) {
-      t.d1 = d;
-    } else if (d < t.d1) {
-      t.d2 = t.d1;
-      t.i2 = t.i1;
-      t.d1 = d;
-      t.i1 = b;
-    } else if (d < t.d2) {
-      t.d2 = d;
-      t.i2 = b;
-    }
-  }
-  return t;
-}
-
-// K7: a thread per (query, ring), 32 queries x 8 rings a block, each
-// streaming its ring from global memory (stream_ring), written in the
-// (Q, R, 2) layout of ring_top2_pallas: dist, and either idx (flat into R * B) or the winners'
-// coordinates c1, c2 (Q, R, 3), fetched by index. Null outputs are skipped.
-__global__ void ring_top2_out_kernel(const float* __restrict__ q, const float* __restrict__ c,
-                                     float2* __restrict__ dist, int2* __restrict__ idx,
-                                     float* __restrict__ c1, float* __restrict__ c2, int Q,
-                                     int R, int B) {
-  const int qi = blockIdx.x * kQueriesPerBlock + threadIdx.x;
-  const int r = blockIdx.y * kRingsPerBlock + threadIdx.y;
-  if (qi >= Q || r >= R) return;
-  const float* cr = c + static_cast<long long>(r) * B * 3;
-  const Top2 t = stream_ring(cr, B, q[3 * qi], q[3 * qi + 1], q[3 * qi + 2]);
-  const long long o = static_cast<long long>(qi) * R + r;
-  dist[o] = make_float2(t.d1, t.d2);
-  if (idx != nullptr) idx[o] = make_int2(r * B + t.i1, r * B + t.i2);
-  if (c1 != nullptr) {
-    for (int k = 0; k < 3; ++k) {
-      c1[3 * o + k] = cr[3 * t.i1 + k];
-      c2[3 * o + k] = cr[3 * t.i2 + k];
-    }
-  }
-}
 
 // ---- K2 ----
 
@@ -265,6 +238,7 @@ __device__ __forceinline__ Best2 ring_top2_warp(const float* __restrict__ c, int
          b);
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) t = merge(t, shfl_xor(t, m));
+  if (t.i1 == INT_MAX) t.i1 = 0;  // no distance below +inf: arg-min's first index
   if (!(t.d2 < kBig)) {
     t.i2 = (t.d2 == kBig && t.i2 < t.i1) ? t.i2 : t.i1;
     t.d2 = kBig;
@@ -452,6 +426,244 @@ cudaError_t launch_assoc(const void* q, const void* c, void* out, int Q, int R, 
   return cudaGetLastError();
 }
 
+// ---- K7 ----
+
+constexpr int kTop2MaxWarps = 8;              // a block: G rings x S segments, a warp each
+constexpr int kTop2StageBytes = 48 * 1024;    // a stage buffer
+constexpr int kTop2TargetWarps = 132 * 16;    // ~16 warps on each of the H100's SMs
+constexpr int kTop2MinQuads = 12;             // a segment's fewest quads at 2 or 4 queries a thread
+
+// A quad of four distances into a stream's (d1, x1, d2, x2), whose
+// candidates all come before the quad's, with no branch: the quad's two
+// smallest values (a min/max network), then a merge in which the stream wins
+// ties, as a strict < keeps the first index. x1 and x2 tag their pairs:
+// quad k of this piece (>= 0), or a resolved index i as ~i (first_at).
+__device__ __forceinline__ void push_quad(Best2& t, float a0, float a1, float a2, float a3,
+                                          int k) {
+  const float lo01 = fminf(a0, a1), hi01 = fmaxf(a0, a1);
+  const float lo23 = fminf(a2, a3), hi23 = fmaxf(a2, a3);
+  const float m1 = fminf(lo01, lo23);
+  const float m2 = fminf(fmaxf(lo01, lo23), fminf(hi01, hi23));
+  const bool first = m1 < t.d1;                // the quad holds the new first
+  const int if_first = m2 < t.d1 ? k : t.i1;   // then the second: the quad's or the old first
+  const int if_not = m1 < t.d2 ? k : t.i2;     // else: the quad's first or the old second
+  t.i2 = first ? if_first : if_not;
+  t.d2 = fminf(fmaxf(t.d1, m1), fminf(t.d2, m2));
+  t.i1 = first ? k : t.i1;
+  t.d1 = fminf(t.d1, m1);
+}
+
+// The first candidate of staged quad k, other than `skip`, at distance d
+// from (qx, qy, qz): the one a tag names (d is one of its distances).
+__device__ __forceinline__ int first_at(const float4* ring, int k, float d, int skip, float qx,
+                                        float qy, float qz) {
+  const float4 u = ring[3 * k], v = ring[3 * k + 1], w = ring[3 * k + 2];
+  const float cs[12] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x, w.y, w.z, w.w};
+  int e = 3;
+#pragma unroll
+  for (int f = 2; f >= 0; --f)
+    if (f != skip && sqd(cs[3 * f], cs[3 * f + 1], cs[3 * f + 2], qx, qy, qz) == d) e = f;
+  return e;
+}
+
+// A block: 32 * QPT queries x G = blockDim.x / (32 * S) rings, a warp a
+// (ring g, segment s). The rings are staged in pieces of PB candidates (a
+// multiple of 4), each ring's piece padded to whole quads with +inf, which
+// never enters a top-2. Segment s takes quads [s * nq / S, (s + 1) * nq / S)
+// of every piece, so its candidates ascend. vec: B % 4 == 0 and c 16-byte
+// aligned, so 16-byte copies; else 4-byte copies.
+template <int QPT>
+__global__ void __launch_bounds__(32 * kTop2MaxWarps) ring_top2_kernel(
+    const float* __restrict__ q, const float* __restrict__ c, float2* __restrict__ dist,
+    int2* __restrict__ idx, float* __restrict__ c1, float* __restrict__ c2, int Q, int R, int B,
+    int S, int PB, int vec) {
+  constexpr int QB = 32 * QPT;
+  extern __shared__ __align__(16) float smem[];
+  const int G = blockDim.x / (32 * S);
+  const int n_pieces = (B + PB - 1) / PB;
+  const int ring_f = 3 * PB;
+  float4* const part = reinterpret_cast<float4*>(smem + (n_pieces > 1 ? 2 : 1) * G * ring_f);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = warp / S, s = warp - g * S;
+  const int q0 = blockIdx.x * QB;
+  const int r0 = blockIdx.y * G;
+  const int nr = min(G, R - r0);
+
+  float qx[QPT], qy[QPT], qz[QPT];
+  Best2 t[QPT];
+#pragma unroll
+  for (int j = 0; j < QPT; ++j) {  // a query past Q repeats the last one
+    const int qc = min(q0 + lane + 32 * j, Q - 1);
+    qx[j] = q[3 * qc];
+    qy[j] = q[3 * qc + 1];
+    qz[j] = q[3 * qc + 2];
+    t[j] = Best2{kInf, kInf, ~INT_MAX, ~INT_MAX};  // resolved to "no candidate"
+  }
+
+  auto stage = [&](int p, float* dst) {
+    const int b0 = p * PB;
+    const int nf = 3 * min(PB, B - b0);
+    if (vec) {
+      const int per = nf / 4;
+      for (int f = threadIdx.x; f < nr * per; f += blockDim.x) {
+        const int j = f / per;
+        const int k = f - j * per;
+        cp_async16(dst + j * ring_f + 4 * k,
+                   c + 3 * ((r0 + j) * static_cast<long long>(B) + b0) + 4 * k);
+      }
+    } else {
+      for (int f = threadIdx.x; f < nr * nf; f += blockDim.x) {
+        const int j = f / nf;
+        const int k = f - j * nf;
+        cp_async4(dst + j * ring_f + k, c + 3 * ((r0 + j) * static_cast<long long>(B) + b0) + k);
+      }
+      const int tail = 12 * ((nf / 3 + 3) / 4) - nf;
+      for (int f = threadIdx.x; f < nr * tail; f += blockDim.x) {
+        const int j = f / tail;
+        dst[j * ring_f + nf + f - j * tail] = kInf;
+      }
+    }
+    cp_async_commit();
+  };
+
+  stage(0, smem);
+  for (int p = 0; p < n_pieces; ++p) {
+    if (p + 1 < n_pieces) {
+      stage(p + 1, smem + ((p + 1) & 1) * G * ring_f);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (g < nr) {  // uniform in the warp
+      const float4* ring =
+          reinterpret_cast<const float4*>(smem + ((p & 1) * G + g) * ring_f);
+      const int nq = (min(PB, B - p * PB) + 3) / 4;
+      const int k_end = (s + 1) * nq / S;
+#pragma unroll 2
+      for (int k = s * nq / S; k < k_end; ++k) {
+        const float4 u = ring[3 * k], v = ring[3 * k + 1], w = ring[3 * k + 2];
+#pragma unroll
+        for (int j = 0; j < QPT; ++j)
+          push_quad(t[j], sqd(u.x, u.y, u.z, qx[j], qy[j], qz[j]),
+                    sqd(u.w, v.x, v.y, qx[j], qy[j], qz[j]),
+                    sqd(v.z, v.w, w.x, qx[j], qy[j], qz[j]),
+                    sqd(w.y, w.z, w.w, qx[j], qy[j], qz[j]), k);
+      }
+      // this piece's quad tags become indices while its quads are staged
+#pragma unroll
+      for (int j = 0; j < QPT; ++j) {
+        int e1 = -1;
+        if (t[j].i1 >= 0) e1 = first_at(ring, t[j].i1, t[j].d1, -1, qx[j], qy[j], qz[j]);
+        if (t[j].i2 >= 0) {
+          const int skip = t[j].i2 == t[j].i1 ? e1 : -1;
+          t[j].i2 = ~(p * PB + 4 * t[j].i2 +
+                      first_at(ring, t[j].i2, t[j].d2, skip, qx[j], qy[j], qz[j]));
+        }
+        if (t[j].i1 >= 0) t[j].i1 = ~(p * PB + 4 * t[j].i1 + e1);
+      }
+    }
+    __syncthreads();  // the buffer is consumed before it is refilled
+  }
+
+  // the segments' pairs, merged a (query, ring) slot a thread, G consecutive
+  // rings of a query on neighbouring threads
+  if (g < nr) {
+#pragma unroll
+    for (int j = 0; j < QPT; ++j)
+      part[warp * QB + lane + 32 * j] =
+          make_float4(t[j].d1, t[j].d2, __int_as_float(~t[j].i1), __int_as_float(~t[j].i2));
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < QB * nr; e += blockDim.x) {
+    const int qq = e / nr;
+    const int gg = e - qq * nr;
+    const int qg = q0 + qq;
+    if (qg >= Q) break;
+    Best2 m{kInf, kInf, INT_MAX, INT_MAX};
+    for (int ss = 0; ss < S; ++ss) {
+      const float4 v = part[(gg * S + ss) * QB + qq];
+      m = merge(m, Best2{v.x, v.y, __float_as_int(v.z), __float_as_int(v.w)});
+    }
+    if (m.i1 == INT_MAX) m.i1 = 0;  // no distance below +inf: arg-min's first index
+    // the TPU's runner-up: the winner's slot set to 1e30, then the first arg-min
+    if (!(m.d2 < kBig)) {
+      m.i2 = (m.d2 == kBig && m.i2 < m.i1) ? m.i2 : m.i1;
+      m.d2 = kBig;
+    }
+    const int r = r0 + gg;
+    const long long o = static_cast<long long>(qg) * R + r;
+    dist[o] = make_float2(m.d1, m.d2);
+    if (idx != nullptr) {
+      idx[o] = make_int2(r * B + m.i1, r * B + m.i2);
+    } else {
+      const float* a = n_pieces == 1 ? smem + gg * ring_f + 3 * m.i1
+                                     : c + 3 * (static_cast<long long>(r) * B + m.i1);
+      const float* b = n_pieces == 1 ? smem + gg * ring_f + 3 * m.i2
+                                     : c + 3 * (static_cast<long long>(r) * B + m.i2);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        c1[3 * o + k] = a[k];
+        c2[3 * o + k] = b[k];
+      }
+    }
+  }
+}
+
+struct Top2Config {
+  int qpt, segments;
+};
+
+// Queries a thread and segments a ring: the most queries a thread (4, 2,
+// 1) for which the fewest segments that give the card kTop2TargetWarps keep
+// kTop2MinQuads quads a segment (at one query a thread, at least 2 quads).
+// The path's calls get 1 x 2 (edges) and 4 x 4 (planes), the fastest of
+// every combination tools/tune_ring_top2.py timed there; LVO_K7_QPT and
+// LVO_K7_SEGMENTS fix both for it.
+Top2Config top2_config(int Q, int R, int B) {
+#if defined(LVO_K7_QPT) && defined(LVO_K7_SEGMENTS)
+  return Top2Config{LVO_K7_QPT, LVO_K7_SEGMENTS};
+#else
+  const int nq = (B + 3) / 4;
+  int qpt = 4, s = 1;
+  for (;; qpt /= 2) {
+    const long long warps = static_cast<long long>((Q + 32 * qpt - 1) / (32 * qpt)) * R;
+    s = 1;
+    while (2 * s <= kTop2MaxWarps && 4 * s <= nq && warps * s < kTop2TargetWarps) s *= 2;
+    if (qpt == 1 || (warps * s >= kTop2TargetWarps && nq >= kTop2MinQuads * s)) break;
+  }
+  return Top2Config{qpt, s};
+#endif
+}
+
+template <int QPT>
+cudaError_t launch_top2(const void* q, const void* c, void* dist, void* idx, void* c1, void* c2,
+                        int Q, int R, int B, int S, cudaStream_t stream) {
+  const int G = max(1, min(R, kTop2MaxWarps / S));
+  const int PB = min(4 * ((B + 3) / 4), max(4, kTop2StageBytes / (12 * G) / 4 * 4));
+  const size_t smem = sizeof(float) * (B > PB ? 2 : 1) * G * 3 * static_cast<size_t>(PB) +
+                      sizeof(float4) * G * S * 32 * QPT;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static bool configured[64] = {};  // the attribute, set once a device
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    e = cudaFuncSetAttribute(ring_top2_kernel<QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+    if (e != cudaSuccess) return e;
+    configured[dev] = true;
+  }
+  const int vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  const dim3 grid((Q + 32 * QPT - 1) / (32 * QPT), (R + G - 1) / G);
+  ring_top2_kernel<QPT><<<grid, 32 * G * S, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(c), static_cast<float2*>(dist),
+      static_cast<int2*>(idx), static_cast<float*>(c1), static_cast<float*>(c2), Q, R, B, S, PB,
+      vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q (Q, 3), baked c (R, B, 3) -> out (Q, 16), all float32. 12 queries a
@@ -467,26 +679,30 @@ extern "C" int lvo_associate(const void* q, const void* c, void* out, int Q, int
 // K7. q (Q, 3) and baked candidates c (R, B, 3) -> dist (Q, R, 2) float32 and
 // either idx (Q, R, 2) int32 or c1, c2 (Q, R, 3) float32 (the other null).
 //
-// Off the product path: only the JAX package's ring-blocked association
-// (knn.ring_top2_best) and its tests reach the TPU kernel. Shapes: edges
-// Q = 768 against (64, 120, 3), planes Q = 1536 against (64, 512, 3).
-// What bounds it on an H100: float32 arithmetic, as K2's first stage (8
-// operations a pair, 5e7 pairs for the planes); the outputs are 1.5 MB (idx)
-// or 3 MB (coordinates) for the planes. Design: a (query, ring) thread
-// streams its ring's candidates from global memory (all 32 lanes of a warp
-// read the same candidate, one broadcast transaction from L1/L2) and writes
-// its own (query, ring) slots; the TPU kernel's one-hot MXU products for the
-// coordinates become loads by index.
+// Replaces the TPU kernel's grid of (query tile, ring) steps, each taking a
+// (QT, B) distance matrix, two arg-mins and one-hot MXU products for the
+// coordinates (pallas_nn.py _ring_top2_call). Off the product path: only the
+// JAX package's ring-blocked association (knn.ring_top2_best) and its tests
+// reach the TPU kernel; chip_smoke.py phase 5 drives this one at the
+// odometry association's shapes, edges Q = 768 against (64, 120, 3) and
+// planes Q = 1536 against (64, 512, 3). Bound and design: the K7 note at the
+// top. One launch; top2_config gives the edges 1 query a thread and 2
+// segments a ring, the planes 4 and 4 (3,072 warps each).
 extern "C" int lvo_ring_top2(const void* q, const void* c, void* dist, void* idx, void* c1,
                              void* c2, int Q, int R, int B, void* stream) {
   if (Q <= 0 || R <= 0 || B <= 0) return cudaErrorInvalidValue;
   if ((idx == nullptr) == (c1 == nullptr) || (c1 == nullptr) != (c2 == nullptr))
     return cudaErrorInvalidValue;
-  dim3 block(kQueriesPerBlock, kRingsPerBlock);
-  dim3 grid((Q + kQueriesPerBlock - 1) / kQueriesPerBlock,
-            (R + kRingsPerBlock - 1) / kRingsPerBlock);
-  ring_top2_out_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(c), static_cast<float2*>(dist),
-      static_cast<int2*>(idx), static_cast<float*>(c1), static_cast<float*>(c2), Q, R, B);
-  return cudaGetLastError();
+  const Top2Config cfg = top2_config(Q, R, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cfg.qpt) {
+    case 1:
+      return launch_top2<1>(q, c, dist, idx, c1, c2, Q, R, B, cfg.segments, s);
+    case 2:
+      return launch_top2<2>(q, c, dist, idx, c1, c2, Q, R, B, cfg.segments, s);
+    case 4:
+      return launch_top2<4>(q, c, dist, idx, c1, c2, Q, R, B, cfg.segments, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -23,9 +23,10 @@ output forms apart.
 Candidates that are masked out must first be moved to ``BAKE_FAR`` with
 ``bake_mask``, so that they can never be nearest; they are ordinary far points
 to every kernel. The TPU kernels' padding of B to 128 lanes is not needed
-here: any B works for K7 and the plain versions; the card's K2 stages rings
-in shared memory, which takes B up to 9,556 at R = 64 (beyond, its launch
-fails and the wrapper raises).
+here: any B works for K7 (the card's kernel stages a ring larger than a
+stage in pieces) and the plain versions; the card's K2 stages rings in
+shared memory, which takes B up to 9,556 at R = 64 (beyond, its launch fails
+and the wrapper raises).
 """
 
 from __future__ import annotations

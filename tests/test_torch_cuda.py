@@ -319,6 +319,19 @@ def test_associate_empty_window_and_second_stream(dev, gen):
     assert torch.equal(got, want)
 
 
+def test_associate_rings_all_at_infinity(dev, gen):
+    """Every candidate 1e20 away, so every squared distance overflows to
+    +inf: the plain version's rows (ring 0, its index 0 as arg-min, the
+    runner-up rule's (1e30, 0)), with no read outside the rings."""
+    c = np.full((64, 120, 3), 1e20, np.float32)
+    c[..., 1] = np.arange(64 * 120).reshape(64, 120)        # every candidate its own point
+    q = (gen.integers(-8, 9, size=(300, 3)) / 8).astype(np.float32)
+    q, c = _on(dev, q, c)
+    out = _assoc_calls(q, c, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, knn_k.associate_kernel_plain(q, c))
+
+
 @pytest.mark.parametrize("B", [120, 512, 1])
 def test_ring_top2_matches_plain(dev, gen, B):
     """K7, both output forms: K2's distances and tie rules, so identical."""
@@ -336,6 +349,97 @@ def test_ring_top2_matches_plain(dev, gen, B):
     _, c1p, c2p = knn_k.ring_top2_coords_plain(q, baked)
     for got, want in ((d, dp), (i, ip), (dc, dp), (c1, c1p), (c2, c2p)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _ring_top2_bit_for_bit(q, baked):
+    """K7 on the card in both output forms, one launch each, against their
+    plain versions bit for bit; returns (dist, idx, c1, c2)."""
+    kernels.reset_launch_counts()
+    d, i = knn_k.ring_top2_pallas(q, baked)
+    dc, c1, c2 = knn_k.ring_top2_coords(q, baked)
+    counts = kernels.launch_counts()
+    assert counts["ring_top2_pallas"] == 1 and counts["ring_top2_coords"] == 1
+    dp, ip = knn_k.ring_top2_pallas_plain(q, baked)
+    _, c1p, c2p = knn_k.ring_top2_coords_plain(q, baked)
+    for got, want in ((d, dp), (i, ip), (dc, dp), (c1, c1p), (c2, c2p)):
+        assert torch.equal(got, want)
+    return d, i, c1, c2
+
+
+@pytest.mark.parametrize("case", ["far", "overflow", "winner first", "all overflow"])
+def test_ring_top2_runner_up_at_1e30(dev, gen, case):
+    """Rings whose candidates other than the winner lie at or above 1e30 in
+    squared distance (2e15 away, or 1e20 away, whose square overflows to
+    +inf), with the winner at index 0 or at an index that moves from ring to
+    ring across the segments: the TPU's runner-up (1e30, the winner's index)
+    and the winner's coordinates, as the plain versions give them."""
+    R, B, Q = 64, 120, 768
+    far = 1e20 if "overflow" in case else 2e15
+    c = np.zeros((R, B, 3), np.float32)
+    c[..., 0] = far
+    win = gen.integers(1, B, R) if case in ("far", "overflow") else np.zeros(R, int)
+    if case != "all overflow":
+        c[np.arange(R), win] = gen.integers(-8, 9, size=(R, 3)) / 8
+    q = (gen.integers(-8, 9, size=(Q, 3)) / 8).astype(np.float32)
+    q, c = _on(dev, q, c)
+    d, i, c1, c2 = _ring_top2_bit_for_bit(q, c)
+    base = torch.arange(R, device=dev, dtype=torch.int32)[None, :] * B
+    assert bool((i[..., 1] == i[..., 0]).all()) and bool((d[..., 1] == 1e30).all())
+    assert torch.equal(i[..., 0] - base, torch.from_numpy(win).to(dev, torch.int32)[None, :]
+                       .expand(Q, R))
+    assert torch.equal(c2, c1)
+
+
+def _ring_tie_case(gen, Q, R, B, reach=3):
+    """Queries and rings on a 1/8 grid within ±reach, so every distance is
+    exact; each ring holds at most 40 distinct points repeated in shuffled
+    copies, so that exact ties lie in different segments and staged pieces;
+    a tenth of the candidates masked (baked far)."""
+    n = max(1, min(B // 2, 40))
+    uniq = gen.integers(-8 * reach, 8 * reach + 1, size=(R, n, 3)) / 8
+    copies = [uniq[:, gen.permutation(n)] for _ in range(-(-B // n))]
+    c = np.concatenate(copies, axis=1)[:, :B].astype(np.float32)
+    q = (gen.integers(-8 * reach, 8 * reach + 1, size=(Q, 3)) / 8).astype(np.float32)
+    return q, c, gen.uniform(size=(R, B)) > 0.1
+
+
+@pytest.mark.parametrize("Q,R,B", [
+    (768, 64, 120),       # the edge call's shape
+    (1536, 64, 512),      # the plane call's shape
+    (100, 64, 1), (100, 9, 2), (65, 7, 3), (129, 5, 5), (300, 13, 31), (300, 3, 33),
+    (77, 1, 512),         # one ring: eight segments
+    (1000, 11, 513),      # Q not a multiple of a block's queries, B of a quad
+    (2048, 66, 2501),     # 4 rings a block, the last group of 2; three pieces, 4-byte copies
+    (4225, 64, 1000),     # 8 rings a block, one segment each; two pieces
+    (257, 2, 20000),      # a ring of five pieces
+])
+def test_ring_top2_ties_across_segments_bit_for_bit(dev, gen, Q, R, B):
+    """The redesigned K7 on exact ties spread over segments and pieces: the
+    plain versions' bits, so the split and the merge keep the first index."""
+    q, c, m = _on(dev, *_ring_tie_case(gen, Q, R, B))
+    d, _, _, _ = _ring_top2_bit_for_bit(q, knn_k.bake_mask(c, m).contiguous())
+    if B > 1:
+        assert bool((d[..., 0] == d[..., 1]).any())          # ties were exercised
+
+
+def test_ring_top2_repeated_second_stream_and_unaligned(dev, gen):
+    """Three calls, a candidate view that starts 4 bytes into its storage
+    (4-byte copies) and two calls on a second stream: the same bits."""
+    q, c, m = _on(dev, *_ring_tie_case(gen, 768, 64, 120))
+    baked = knn_k.bake_mask(c, m).contiguous()
+    first = _ring_top2_bit_for_bit(q, baked)
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(_ring_top2_bit_for_bit(q, baked), first))
+    view = torch.empty(baked.numel() + 1, device=dev)[1:].view(baked.shape)
+    view.copy_(baked)
+    assert view.data_ptr() % 16 == 4
+    assert all(torch.equal(a, b) for a, b in zip(_ring_top2_bit_for_bit(q, view), first))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        on_side = [knn_k.ring_top2_pallas(q, baked), knn_k.ring_top2_coords(q, baked)]
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert all(torch.equal(a, b) for a, b in zip(on_side[0] + on_side[1][1:], first))
 
 
 @pytest.mark.parametrize("Q,C,k", [(4096, 32768, 5), (1000, 777, 3), (64, 3, 5)])

@@ -114,6 +114,37 @@ def test_ring_top2_ties_and_single_candidate_rings():
     np.testing.assert_array_equal(k2.numpy(), k1.numpy())
 
 
+#: rings whose candidates other than the winner lie at or above 1e30 in
+#: squared distance from the origin: (ring, winner's index, its distance)
+RUNNER_UP_AT_1E30 = {
+    "far": ([(2e15, 0, 0), (1, 0, 0), (2e15, 0, 0)], 1, 1.0),
+    "overflow": ([(1e20, 0, 0), (0, 0.5, 0), (1e20, 0, 0)], 1, 0.25),   # 1e40: +inf
+    "winner first": ([(0, 0, 1), (2e15, 0, 0), (2e15, 0, 0)], 0, 1.0),
+    "all overflow": ([(1e20, 0, 0), (0, 1e20, 0), (0, 0, 1e20)], 0, np.inf),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RUNNER_UP_AT_1E30))
+def test_ring_top2_runner_up_at_1e30(case):
+    """The TPU kernel's runner-up when no other candidate of the ring is below
+    1e30: the winner's slot set to 1e30, then the first arg-min, which is the
+    winner itself, so (1e30, the winner's index) and the winner's coordinates.
+    The inputs are exact (one nonzero component a difference), so the plain
+    versions give the interpret-mode kernel's bits."""
+    ring, win, d_win = RUNNER_UP_AT_1E30[case]
+    c = np.array([ring, [(0, 0, 0.5), (0, 3, 0), (0, 0, -0.5)]], np.float32)
+    q = np.zeros((2, 3), np.float32)
+    d_j, i_j = pallas_nn.ring_top2_pallas(jnp.asarray(q), jnp.asarray(c), interpret=True)
+    dc_j, c1_j, c2_j = pallas_nn.ring_top2_coords(jnp.asarray(q), jnp.asarray(c), interpret=True)
+    d, i = knn_k.ring_top2_pallas_plain(_t(q), _t(c))
+    dc, c1, c2 = knn_k.ring_top2_coords_plain(_t(q), _t(c))
+    for got, want in ((d, d_j), (i, i_j), (dc, dc_j), (c1, c1_j), (c2, c2_j)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(d.numpy()[0], np.float32([[d_win, 1e30], [0.25, 0.25]]))
+    np.testing.assert_array_equal(i.numpy()[0], [[win, win], [3, 5]])
+    np.testing.assert_array_equal(c2.numpy()[:, 0], c1.numpy()[:, 0])
+
+
 # -------------------------------------------------- ring-blocked and dense
 
 

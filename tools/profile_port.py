@@ -56,7 +56,7 @@ def _device_us(evt) -> float:
 # K4's range pre-pass and search, K5 (with K8 and K5p), K6 and K7
 PORT_KERNELS = ("segsum_rows_kernel", "segsum_flat_kernel", "assoc_kernel", "gn_kernel",
                 "topk_window_ranges_kernel", "topk_windowed_kernel", "topk_kernel",
-                "lk_level_kernel", "ring_top2_out_kernel")
+                "lk_level_kernel", "ring_top2_kernel")
 
 
 def _kernel_name(key: str, name: str) -> str:
@@ -79,14 +79,16 @@ def _k2_by_call(kernel_events, frames):
             for j, kind in enumerate(("edges", "planes"))}
 
 
-def _by_call(kernel_events, name, kinds):
-    """Device ms per call of each instance of kernel ``name``, its calls
-    taken in time order as ``kinds`` in turn (the order in which a path
-    calls it), so that calls of one instance at other shapes stay apart."""
+def _by_call(kernel_events, name, kinds, instances=True):
+    """Device ms per call of each instance of kernel ``name`` (of all its
+    instances together, ``instances=False``), its calls taken in time order
+    as ``kinds`` in turn (the order in which a path calls it), so that calls
+    of one instance at other shapes stay apart."""
     by_instance = {}
     for e in kernel_events:
         if name + "<" in e.name or name + "(" in e.name:
-            by_instance.setdefault(_kernel_name(e.name, name), []).append(e)
+            key = _kernel_name(e.name, name) if instances else name
+            by_instance.setdefault(key, []).append(e)
     out = {}
     for inst, evs in by_instance.items():
         evs.sort(key=lambda e: e.time_range.start)
@@ -364,11 +366,12 @@ def main() -> int:
             "launches_per_frame": {k: v / n for k, v in counts.items() if v},
             "stats": stats,
             # per frame: K7's index form, then its coordinate form, on the
-            # edges, then both on the planes; K5, K8 and K5p on the corner
-            # queries, then on the surf queries
-            "ring_top2_by_call": _by_call(kernel_events, "ring_top2_out_kernel",
+            # edges, then both on the planes (an instance a launch
+            # configuration, so all instances together); K5, K8 and K5p on
+            # the corner queries, then on the surf queries
+            "ring_top2_by_call": _by_call(kernel_events, "ring_top2_kernel",
                                           ("index edges", "coords edges", "index planes",
-                                           "coords planes")),
+                                           "coords planes"), instances=False),
             "topk_by_call": _by_call(kernel_events, "topk_kernel", ("corner", "surf")),
         }
 

@@ -67,6 +67,28 @@ Phase 5  drives the k-NN entry points off the product path on every frame:
          the map of the frames before: K8 must match K5 (distances bit for
          bit, coordinates of K5's candidates), K5p must give K5's distances cut
          to 2^-8 and K5's indices except at ties of the cut distance (counted).
+Phase 6  drives direct photometric VO at full width, the bench's fourth mode:
+         ``DirectVOChunked(cam, cfg.visual, point_cap=2048,
+         device="cuda").run_chunked(images, clouds, masks, chunk=8)`` with the
+         cam-lidar configuration (640 x 192 camera, 4 pyramid levels, a
+         5-keyframe window, BA at level 0 on 1024 points a keyframe over the
+         14 pairs with |h - t| <= 2) on phase 4's images and the clouds
+         ``CamLidarPipeline._cam_cloud`` makes of the 48 frames' scans, one
+         warm run and one timed run. It prints frames/s, ms/frame, peak device
+         memory, the tracker's iterations and the BA's rounds a frame, and
+         checks that the trajectory is finite, that the two runs give the
+         same bits (the BA sums its blocks in a fixed order), and that
+         ``ate_direct`` (the poses mapped to the lidar frame, no alignment) is
+         within 0.01 m of the JAX package's on the CPU
+         (``tools/jax_reference_direct.json``, from
+         ``tools/jax_reference_direct.py``); it prints the largest position
+         and quaternion difference from that trajectory, and from the JAX
+         package's per-frame host loop, and fails when the positions lie
+         more than 5e-3 m from the host loop's (the port measured 1.2e-3 m
+         on the H100; the JAX chunk's jitted BA keeps other lowest-chi^2
+         iterates, up to 0.17 m away at frames 18-19). No kernel of the port
+         lies on this path (the JAX package runs no Pallas kernel there
+         either).
 
 Prints one JSON line with all ten kernels' numbers, K7's two output forms in
 two rows (launches counted on the
@@ -103,7 +125,12 @@ SLAM_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the CPU by tools/jax_reference_camlidar.py: its ate_visual gates the port's.
 CAMLIDAR_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tools", "jax_reference_camlidar.json")
+# The JAX package's direct VO on the same sequence, images and clouds, run on
+# the CPU by tools/jax_reference_direct.py: its ate_direct gates the port's.
+DIRECT_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tools", "jax_reference_direct.json")
 ATE_MARGIN = 0.01
+HOST_LOOP_TOL_M = 5e-3   # phase 6: positions against the JAX per-frame host loop
 DENSE_FRAMES = 17     # phase 3b
 DENSE_TOL_M = 1e-4
 MAP_FRAMES = 9        # phase 1: frames merged into the k-NN kernels' world map
@@ -941,6 +968,76 @@ def phase5_knn(scans, odo, mapped, dev):
     return counts, stats, tie_rel
 
 
+def phase6_direct(scans, images, gt_rel, dev):
+    """Direct VO at the bench's call: one warm and one timed run. Returns the
+    printed line's numbers; raises on a non-finite trajectory or above the
+    gate."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch import kernels
+    from lidar_visual_odometry_tpu_torch.eval import metrics
+    from lidar_visual_odometry_tpu_torch.models import tracker_direct, window_ba
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import (
+        CamLidarPipeline, _map_cam_poses_to_lidar,
+    )
+    from lidar_visual_odometry_tpu_torch.models.direct_vo import DirectVOChunked
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+
+    with open(DIRECT_REFERENCE) as f:
+        ref = json.load(f)
+    cfg = camlidar_config()
+    pipe = CamLidarPipeline(cfg, device=dev)
+    clouds, masks = zip(*(pipe._cam_cloud(np.asarray(s)[:, :3]) for s in scans))
+    digest = hashlib.sha256()
+    for arr in (*images, *clouds, *masks):
+        digest.update(np.ascontiguousarray(arr).tobytes())
+    dvo = DirectVOChunked(pipe.cam, cfg.visual, point_cap=2048, device=dev)
+    warm_t, warm_q, _ = dvo.run_chunked(images, clouds, masks, chunk=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tracker_direct.reset_stats()
+    window_ba.reset_stats()
+    ts, qs, wall = dvo.run_chunked(images, clouds, masks, chunk=8)
+    torch.cuda.synchronize()
+    frames = len(images) - 1
+    vq, vt = _map_cam_poses_to_lidar(torch.from_numpy(qs).to(dev), torch.from_numpy(ts).to(dev),
+                                     pipe.T_lidar_cam, pipe.T_cam_lidar)
+    positions, quats = vt.cpu().numpy(), vq.cpu().numpy()
+    out = {
+        "frames_per_s": frames / wall,
+        "ms_per_frame": 1e3 * wall / frames,
+        "ate_direct_m": metrics.ate_rmse(positions, gt_rel, align=False),
+        "jax_ate_direct_m": ref["ate_direct_m"],
+        "inputs_equal_the_references": digest.hexdigest() == ref["inputs_sha256"],
+        "largest_position_difference_m": float(
+            np.abs(positions - np.asarray(ref["positions"])).max()),
+        "largest_quaternion_difference": float(np.abs(quats - np.asarray(ref["quats"])).max()),
+        "largest_position_difference_from_the_host_loop_m": float(
+            np.abs(positions - np.asarray(ref["host_loop_positions"])).max()),
+        "track_iterations_per_frame": tracker_direct.stats["iterations"] / frames,
+        "ba_rounds_per_frame": window_ba.stats["rounds"] / frames,
+        "peak_device_memory_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+        "runs_bit_for_bit": bool(np.array_equal(ts, warm_t) and np.array_equal(qs, warm_q)),
+    }
+    if positions.shape != (len(images), 3) or not np.isfinite(positions).all() \
+            or not np.isfinite(quats).all():
+        raise AssertionError(f"bad direct-VO trajectory: shape {positions.shape}")
+    if not out["runs_bit_for_bit"]:
+        raise AssertionError("the warm and the timed direct-VO runs differ: "
+                             f"{float(np.abs(ts - warm_t).max())} m")
+    if not out["ate_direct_m"] <= ref["ate_direct_m"] + ATE_MARGIN:
+        raise AssertionError(f"ate_direct {out['ate_direct_m']} m exceeds the JAX reference "
+                             f"{ref['ate_direct_m']} + {ATE_MARGIN}")
+    if not out["largest_position_difference_from_the_host_loop_m"] <= HOST_LOOP_TOL_M:
+        raise AssertionError(
+            "direct-VO positions lie "
+            f"{out['largest_position_difference_from_the_host_loop_m']} m from the JAX host "
+            f"loop's (limit {HOST_LOOP_TOL_M})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1156,6 +1253,23 @@ def main() -> int:
         raise AssertionError(f"a kernel of the k-NN entry points was never launched: {counts}")
     launches.update({name: counts[name] for name in knn_path})
     print(f"phases 0-5 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 6: direct photometric VO at full width ----
+    d = phase6_direct(scans, images, gt_rel, dev)
+    print(f"phase 6: {frames} frames, {d['frames_per_s']:.2f} frames/s, "
+          f"{d['ms_per_frame']:.3f} ms/frame, ate_direct {d['ate_direct_m']:.5f} m (JAX CPU "
+          f"reference {d['jax_ate_direct_m']:.5f} m + {ATE_MARGIN}), largest position "
+          f"difference from the JAX trajectory {d['largest_position_difference_m']:.5f} m "
+          f"(quaternion {d['largest_quaternion_difference']:.5f}; from the JAX host loop's "
+          f"{d['largest_position_difference_from_the_host_loop_m']:.5f} m, limit "
+          f"{HOST_LOOP_TOL_M}), inputs equal the "
+          f"reference's: {d['inputs_equal_the_references']}, warm and timed runs bit for bit: "
+          f"{d['runs_bit_for_bit']}, "
+          f"{d['track_iterations_per_frame']:.2f} tracker iterations and "
+          f"{d['ba_rounds_per_frame']:.2f} BA rounds a frame, peak device memory "
+          f"{d['peak_device_memory_mib']:.1f} MiB, launches of the port's kernels "
+          f"{d['launches']}", flush=True)
+    print(f"phases 0-6 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for r in results:
         r["launches"] = launches[r["name"]]

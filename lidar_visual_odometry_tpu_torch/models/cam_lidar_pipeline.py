@@ -146,6 +146,12 @@ class CamLidarPipeline:
             torch.from_numpy(-(self.R_cl.T @ self.t_cl).astype(np.float32)).to(dev))
         self.last_wall = 0.0
 
+    def _cam_cloud(self, raw: np.ndarray):
+        """The camera-frame depth cloud of a raw (n, 3) scan on the host
+        (the JAX package's ``_cam_cloud``; the direct VO bench builds its
+        clouds with it)."""
+        return camera_cloud_select(raw, self.R_cl, self.t_cl, self.cfg.visual.depth_cloud_cap)
+
     def run(self, scans, images, scan_stamps=None, image_stamps=None):
         raise NotImplementedError(
             "CamLidarPipeline.run (per frame, paired by match_nearest) is not ported "

@@ -33,6 +33,12 @@ from ..utils.config import LidarConfig, OdometryConfig
 from ..utils.device import resolve_device
 from .scan_registration import register_polar_impl
 
+# Host-to-device quantisation of camera-frame clouds (the direct VO chunk's
+# upload): uint16 at 3.9 mm over ±128 m, decoded as q·QUANT_SCALE +
+# QUANT_OFFSET (the JAX package's ``lidar_odometry.py:216-217``).
+QUANT_SCALE = 256.0 / 65536.0
+QUANT_OFFSET = -128.0
+
 
 class OdometryState(NamedTuple):
     pose_w: se3.Pose          # world ← current frame

@@ -2,7 +2,8 @@
 (≡ Ceres DENSE_QR + HuberLoss(0.1), ``laserOdometry.cpp:570-575``).
 
 The scan-to-scan solve uses these for the de-skewed inner loop, which the fused
-kernel K3 (``kernels.gn``) does not cover.
+kernel K3 (``kernels.gn``) does not cover; the direct photometric tracker and
+the window BA use the Student-t weights and ``nanmedian``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,30 @@ def huber_weight(r_norm: torch.Tensor, delta: float) -> torch.Tensor:
     """IRLS weight of the Huber loss: 1 inside δ, δ/|r| outside."""
     return torch.where(r_norm <= delta, torch.ones_like(r_norm),
                        delta / torch.clamp(r_norm, min=1e-12))
+
+
+def tdist_weight(r: torch.Tensor, sigma: torch.Tensor, dof: float = 5.0) -> torch.Tensor:
+    """Student-t weight (ν+1)/(ν+(r/σ)²) (≡ WeightFunction.cpp:91-95)."""
+    x2 = (r / torch.clamp(sigma, min=1e-12)) ** 2
+    return (dof + 1.0) / (dof + x2)
+
+
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """Median of the non-NaN values of ``x`` (all axes) by the JAX package's
+    rule, ``jnp.nanmedian`` = ``nanquantile(0.5, "linear")``: sort (NaNs
+    last), q = 0.5·(n − 1) in float32 over the n valid values, and
+    ``low·(1 − f) + high·f`` at floor and ceil of q. ``torch.nanmedian``
+    returns the lower middle value instead, which differs at an even count.
+    NaN when no value is valid."""
+    a = torch.sort(x.reshape(-1)).values
+    n = torch.sum(~torch.isnan(a)).to(torch.float32)
+    q = 0.5 * (n - 1.0)
+    low = torch.floor(q)
+    high_w = q - low
+    low_w = 1.0 - high_w
+    lo = torch.clamp(torch.minimum(low, n - 1.0), min=0.0).to(torch.int64)
+    hi = torch.clamp(torch.minimum(torch.ceil(q), n - 1.0), min=0.0).to(torch.int64)
+    return a[lo] * low_w + a[hi] * high_w
 
 
 def accumulate(r: torch.Tensor, J: torch.Tensor, w: torch.Tensor, mask: torch.Tensor):

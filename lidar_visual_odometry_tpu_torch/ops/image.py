@@ -7,7 +7,8 @@ feature selection of the visual frontend.
 * ``gradients`` ≡ the ±1 central differences of ``Tracker2.cpp:151-160``;
 * ``bilinear`` ≡ per-patch interpolation (``Tracker2.cpp:124-150``) as a
   batched gather (the JAX package's one-hot ``bilinear_mxu`` is a TPU
-  workaround and has no counterpart here);
+  workaround and has no counterpart here); ``bilinear_stack`` samples
+  several channels, or images of a stack, in one gather;
 * ``shi_tomasi_score`` + ``grid_select_features`` ≡ featureTracking's
   per-subregion detection (``featureTracking.cpp:101,145-160,300-385``);
 * ``clahe`` ≡ ``cv::createCLAHE(3.0, (8, 8))`` (``featureTracking.cpp:92-95``).
@@ -52,20 +53,29 @@ def gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def bilinear(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Sample an (H, W) image at float coords uv (..., 2) = (x, y); out of
     bounds clamps to the border (callers gate with in-image masks)."""
-    H, W = img.shape
+    return bilinear_stack(img[None, ..., None], uv)[..., 0]
+
+
+def bilinear_stack(stack: torch.Tensor, uv: torch.Tensor, index=None) -> torch.Tensor:
+    """Sample every channel of a channels-last stack (B, H, W, C) at uv
+    (..., 2) = (x, y), from image ``index`` (an int tensor broadcasting
+    against uv's leading axes; None for image 0): (..., C), in one gather.
+    Out of bounds clamps to the border (callers gate with in-image masks)."""
+    B, H, W, C = stack.shape
     x = torch.clamp(uv[..., 0], 0.0, W - 1.001)
     y = torch.clamp(uv[..., 1], 0.0, H - 1.001)
     x0 = torch.floor(x).to(torch.int64)
     y0 = torch.floor(y).to(torch.int64)
     x1 = torch.clamp(x0 + 1, max=W - 1)
     y1 = torch.clamp(y0 + 1, max=H - 1)
-    wx = x - x0
-    wy = y - y0
-    flat = img.reshape(-1)
-    v00 = flat[y0 * W + x0]
-    v01 = flat[y0 * W + x1]
-    v10 = flat[y1 * W + x0]
-    v11 = flat[y1 * W + x1]
+    wx = (x - x0)[..., None]
+    wy = (y - y0)[..., None]
+    base = 0 if index is None else index * (H * W)
+    flat = stack.reshape(-1, C)
+    v00 = flat[base + y0 * W + x0]
+    v01 = flat[base + y0 * W + x1]
+    v10 = flat[base + y1 * W + x0]
+    v11 = flat[base + y1 * W + x1]
     return (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
             + v10 * (1 - wx) * wy + v11 * wx * wy)
 

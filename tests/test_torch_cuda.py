@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the direct-VO chunk (which runs no kernel of the port) on the card
+against the port on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that on a machine with a card and without JAX it runs with
@@ -800,3 +802,52 @@ def test_wrappers_reject_bad_input(dev):
         klk.lk_level(img[:16], img[:16], uv, uv, win=13)
     with pytest.raises(TypeError):
         klk.lk_level(img, img, uv, uv, torch.ones(8, device=dev), win=13)
+
+
+def _direct_scene(n_frames=6):
+    """The small direct-VO scene of tests/test_torch_direct.py: a 320 × 96
+    camera moving 0.35 m and 0.004 rad a frame down the corridor, clouds
+    sampled from the rendered depth."""
+    from lidar_visual_odometry_tpu_torch.data import synthetic
+
+    cam = dict(fx=120.0, fy=120.0, cx=160.0, cy=48.0, width=320, height=96)
+    scene = synthetic.BoxScene.corridor(0)
+    rng = np.random.default_rng(0)
+    imgs, clouds, masks = [], [], []
+    for k in range(n_frames):
+        R, t = synthetic.camera_from_velodyne_pose(synthetic.yaw_matrix(0.004 * k),
+                                                   np.asarray([0.35 * k, 0.0, 1.5]))
+        img, depth = synthetic.render_image(scene, R, t, **cam)
+        ys, xs = rng.integers(0, 96, 8192), rng.integers(0, 320, 8192)
+        z = depth[ys, xs]
+        ok = np.isfinite(z)
+        z = np.where(ok, z, 1.0)
+        clouds.append(np.stack([(xs - 160.0) / 120.0 * z, (ys - 48.0) / 120.0 * z, z],
+                               axis=-1).astype(np.float32))
+        imgs.append(img.astype(np.float32))
+        masks.append(ok)
+    return cam, imgs, clouds, masks
+
+
+@pytest.mark.parametrize("run_ba, tol", [(False, 5e-4), (True, 5e-3)])
+def test_direct_vo_chunked_on_the_card_matches_the_cpu(dev, run_ba, tol):
+    """The small chunk on the card against the port on the CPU. With the BA
+    on, the fifth frame's BA has two iterates whose χ² lie within 2e-5
+    (tests/test_torch_direct.py), so a different summation order may keep
+    the other one, 3.4e-3 m away."""
+    from lidar_visual_odometry_tpu_torch.models.direct_vo import DirectVOChunked
+    from lidar_visual_odometry_tpu_torch.ops.camera import Pinhole
+    from lidar_visual_odometry_tpu_torch.utils.config import VisualConfig
+
+    c, imgs, clouds, masks = _direct_scene()
+    cfg = VisualConfig(pyramid_levels=3, keyframe_window=3)
+    out = {}
+    for d in ("cpu", dev):
+        cam = Pinhole(c["fx"], c["fy"], c["cx"], c["cy"], c["width"], c["height"],
+                      torch.zeros(5, device=d))
+        out[str(d)] = DirectVOChunked(cam, cfg, point_cap=512, run_window_ba=run_ba,
+                                      device=d).run_chunked(imgs, clouds, masks, chunk=4)
+    (ct, cq, _), (gt, gq, _) = out["cpu"], out[str(dev)]
+    assert np.isfinite(gt).all() and gt.shape == (6, 3)
+    np.testing.assert_allclose(gt, ct, atol=tol)
+    np.testing.assert_allclose(gq, cq, atol=tol)

@@ -134,7 +134,7 @@ def test_run_chunked_ragged_chunk_and_polar(seq_scans):
 def test_port_imports_no_jax():
     """The port imports torch and numpy only: no jax, nothing of the JAX
     package, with every module imported, the k-NN entry points of kernels
-    K7, K8 and K5p among them."""
+    K7, K8 and K5p and the direct VO modules among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import lidar_visual_odometry_tpu_torch as p\n"
@@ -153,6 +153,11 @@ def test_port_imports_no_jax():
         "                          'associate_planes_ringblocked', 'associate_edges',\n"
         "                          'associate_planes', '_ring_top2_with_coords'))):\n"
         "    assert all(callable(getattr(mod, n)) for n in names), mod\n"
+        "from lidar_visual_odometry_tpu_torch.models import direct_vo, keyframe\n"
+        "from lidar_visual_odometry_tpu_torch.models import sqrt_photometric, window_ba\n"
+        "assert callable(direct_vo.DirectVOChunked.run_chunked)\n"
+        "assert all(callable(f) for f in (direct_vo.direct_chunk, keyframe.select_points,\n"
+        "                                 window_ba.refine, sqrt_photometric.condense))\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,4 +1,4 @@
-"""The port's pipeline entry points against the JAX package's: the three
+"""The port's pipeline entry points against the JAX package's: the four
 ``run_chunked`` signatures (names, order, defaults), the reference's default
 ingests and checkpoint arguments raising ``NotImplementedError`` until they
 are ported, and the pyramidal tracker routing its levels as the TPU does
@@ -13,12 +13,15 @@ import torch
 
 from lidar_visual_odometry_tpu.data import synthetic as jsyn
 from lidar_visual_odometry_tpu.models import cam_lidar_pipeline as jcl
+from lidar_visual_odometry_tpu.models import direct_vo as jdv
 from lidar_visual_odometry_tpu.models import pipeline as jpipe
 from lidar_visual_odometry_tpu.ops import image as jimg
 from lidar_visual_odometry_tpu.ops import lk as jlk
 from lidar_visual_odometry_tpu_torch.kernels import lk as klk
 from lidar_visual_odometry_tpu_torch.models import cam_lidar_pipeline as tcl
+from lidar_visual_odometry_tpu_torch.models import direct_vo as tdv
 from lidar_visual_odometry_tpu_torch.models import pipeline as tpipe
+from lidar_visual_odometry_tpu_torch.ops import camera as tcam
 from lidar_visual_odometry_tpu_torch.ops import lk as tlk
 from lidar_visual_odometry_tpu_torch.utils import config as tcfg
 
@@ -68,6 +71,25 @@ def test_run_chunked_default_ingest_raises_naming_a7(name, scans):
                dict(stop_after=1)):
         with pytest.raises(NotImplementedError, match="A.7"):
             _run(name, pipe, scans, ingest="polar2", **kw)
+
+
+def test_direct_run_chunked_signature_is_the_references():
+    assert _params(tdv.DirectVOChunked) == _params(jdv.DirectVOChunked)
+    bound = inspect.signature(tdv.DirectVOChunked.run_chunked).bind(
+        "self", "images", "clouds", "masks", 8, True)
+    assert bound.arguments["chunk"] == 8 and bound.arguments["progress"] is True
+
+
+@pytest.mark.parametrize("kw", [dict(checkpoint_path="x.npz", checkpoint_every=8),
+                                dict(checkpoint_path="x.npz"), dict(resume=True),
+                                dict(stop_after=1)])
+def test_direct_checkpoint_arguments_raise_naming_a7(kw):
+    cam = tcam.Pinhole(120.0, 120.0, 160.0, 48.0, 320, 96, torch.zeros(5))
+    vo = tdv.DirectVOChunked(cam, tcfg.VisualConfig(), device="cpu")
+    n = 2
+    with pytest.raises(NotImplementedError, match="A.7"):
+        vo.run_chunked([np.zeros((96, 320), np.uint8)] * n, [np.zeros((16, 3), np.float32)] * n,
+                       [np.zeros(16, bool)] * n, **kw)
 
 
 @pytest.mark.parametrize("kw, ingest", [({}, "float"), (dict(quantize=True), "uint16"),

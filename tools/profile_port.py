@@ -23,17 +23,22 @@ pipeline up and measures:
   phase 5 (the k-NN entry points off the product path, on every frame, at
   the poses of one SLAM run) and gives the device time per call of K7 (index
   and coordinate forms, edge and plane calls apart) and of K5, K8 and K5p
-  (corner and surf calls apart).
+  (corner and surf calls apart). ``direct`` times the direct-VO path
+  (``DirectVOChunked.run_chunked`` at the bench's call, clouds from
+  ``CamLidarPipeline._cam_cloud``) split into upload, decode and pyramid,
+  tracking, point selection, the keyframe decision and the window shift with
+  its BA, with the tracker's iterations and the BA's rounds per frame.
 
 Writes ``<out>/profile_port.json`` and prints a summary. Needs a CUDA device.
 
-    python tools/profile_port.py [--frames 17] [--paths odometry,slam,slam_dense,camlidar,knn]
-                                 [--out DIR]
+    python tools/profile_port.py [--frames 17]
+        [--paths odometry,slam,slam_dense,camlidar,knn,direct] [--out DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -138,7 +143,7 @@ def _trace(run, frames):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=17)
-    ap.add_argument("--paths", default="odometry,slam,slam_dense,camlidar,knn")
+    ap.add_argument("--paths", default="odometry,slam,slam_dense,camlidar,knn,direct")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     paths = args.paths.split(",")
@@ -177,7 +182,8 @@ def main() -> int:
 
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
         scans = list(ex.map(seq.scan, range(args.frames)))
-        images = list(ex.map(render_image, range(args.frames))) if "camlidar" in paths else []
+        images = (list(ex.map(render_image, range(args.frames)))
+                  if {"camlidar", "direct"} & set(paths) else [])
     n = len(scans) - 1
     geom = dict(n_scans=lcfg.n_scans, width=lcfg.azimuth_bins,
                 min_range=lcfg.min_range, max_range=lcfg.max_range)
@@ -306,6 +312,31 @@ def main() -> int:
                 "lk_level_launches_per_frame": counts["lk_level"] / n,
                 "solve_pose_iterations_per_frame": int(vf.stats["solve_iterations"]) / n}
 
+    def direct_stage_times(dvo, clouds, masks):
+        """``DirectVOChunked.run_chunked``'s stages per frame, through its
+        ``stage_timer``, with a device synchronisation around each."""
+        from lidar_visual_odometry_tpu_torch.models import tracker_direct, window_ba
+
+        stages = {}
+
+        @contextlib.contextmanager
+        def timed(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+
+        tracker_direct.reset_stats()
+        window_ba.reset_stats()
+        plain, dvo.stage_timer = dvo.stage_timer, timed
+        dvo.run_chunked(images, clouds, masks, chunk=8)
+        dvo.stage_timer = plain
+        return {"stage_ms_per_frame_synchronised": {k: 1e3 * v / n for k, v in stages.items()},
+                "track_iterations_per_frame": tracker_direct.stats["iterations"] / n,
+                "ba_calls_per_frame": window_ba.stats["calls"] / n,
+                "ba_rounds_per_frame": window_ba.stats["rounds"] / n}
+
     if "odometry" in paths:
         OdometryPipeline(cfg, device=dev).run_chunked(scans, chunk=8, ingest="polar2")   # warm
         torch.cuda.synchronize()
@@ -386,6 +417,21 @@ def main() -> int:
             scans, images, chunk=8, ingest="polar2").visual_positions, n))
         r["peak_device_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
         result["camlidar"] = r
+
+    if "direct" in paths:
+        from lidar_visual_odometry_tpu_torch.models.direct_vo import DirectVOChunked
+
+        ccfg = camlidar_config()
+        pipe = cl.CamLidarPipeline(ccfg, device=dev)
+        clouds, masks = zip(*(pipe._cam_cloud(np.asarray(s)[:, :3]) for s in scans))
+        dvo = DirectVOChunked(pipe.cam, ccfg.visual, point_cap=2048, device=dev)
+        dvo.run_chunked(images, clouds, masks, chunk=8)   # warm
+        torch.cuda.synchronize()
+        r = direct_stage_times(dvo, clouds, masks)
+        torch.cuda.reset_peak_memory_stats()
+        r.update(_trace(lambda: dvo.run_chunked(images, clouds, masks, chunk=8)[0], n))
+        r["peak_device_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        result["direct"] = r
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_port.json"), "w") as f:

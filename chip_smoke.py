@@ -107,10 +107,19 @@ import os
 import subprocess
 import sys
 import time
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
-import numpy as np
+# Scans and images are rendered in threads. numpy's OpenBLAS, called from
+# several Python threads with several BLAS threads each, has corrupted renders
+# (points metres off, an image pixel off by 0.67; ROADMAP C.5); with one BLAS
+# thread every threaded render equals the serial one. Set before numpy is
+# first imported.
+os.environ["OPENBLAS_NUM_THREADS"] = "1"
+os.environ["OMP_NUM_THREADS"] = "1"
+
+import numpy as np  # noqa: E402
 
 # The JAX package's lidar odometry on this script's sequence and
 # configuration, run on the CPU by tools/jax_reference_ate.py: its ATE gates
@@ -129,7 +138,13 @@ CAMLIDAR_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the CPU by tools/jax_reference_direct.py: its ate_direct gates the port's.
 DIRECT_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tools", "jax_reference_direct.json")
+# The JAX package's per-frame drivers and default ingests on the same sequence
+# and images, run on the CPU by tools/jax_reference_drivers.py: phase 7's gates.
+DRIVERS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tools", "jax_reference_drivers.json")
 ATE_MARGIN = 0.01
+SHORT_FRAMES = 17     # phase 7: the per-frame SLAM and the camera runs
+CHECKPOINT_EVERY, STOP_AFTER = 8, 24   # phase 7f
 HOST_LOOP_TOL_M = 5e-3   # phase 6: positions against the JAX per-frame host loop
 DENSE_FRAMES = 17     # phase 3b
 DENSE_TOL_M = 1e-4
@@ -149,6 +164,22 @@ def _smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _sha256(arrays) -> str:
+    """sha256 over the arrays' bytes in order, as the reference tools digest
+    their inputs."""
+    digest = hashlib.sha256()
+    for arr in arrays:
+        digest.update(np.ascontiguousarray(arr).tobytes())
+    return digest.hexdigest()
+
+
+def _check_inputs(phase: str, ref: dict, digest: str) -> None:
+    """A phase gates on a reference only for the inputs the reference ran."""
+    if digest != ref["inputs_sha256"]:
+        raise AssertionError(f"phase {phase}: the inputs hash to {digest[:16]}, the reference's "
+                             f"to {ref['inputs_sha256'][:16]}: they are not the reference's")
 
 
 def _time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -988,9 +1019,7 @@ def phase6_direct(scans, images, gt_rel, dev):
     cfg = camlidar_config()
     pipe = CamLidarPipeline(cfg, device=dev)
     clouds, masks = zip(*(pipe._cam_cloud(np.asarray(s)[:, :3]) for s in scans))
-    digest = hashlib.sha256()
-    for arr in (*images, *clouds, *masks):
-        digest.update(np.ascontiguousarray(arr).tobytes())
+    _check_inputs("6", ref, _sha256((*images, *clouds, *masks)))
     dvo = DirectVOChunked(pipe.cam, cfg.visual, point_cap=2048, device=dev)
     warm_t, warm_q, _ = dvo.run_chunked(images, clouds, masks, chunk=8)
     torch.cuda.synchronize()
@@ -1009,7 +1038,6 @@ def phase6_direct(scans, images, gt_rel, dev):
         "ms_per_frame": 1e3 * wall / frames,
         "ate_direct_m": metrics.ate_rmse(positions, gt_rel, align=False),
         "jax_ate_direct_m": ref["ate_direct_m"],
-        "inputs_equal_the_references": digest.hexdigest() == ref["inputs_sha256"],
         "largest_position_difference_m": float(
             np.abs(positions - np.asarray(ref["positions"])).max()),
         "largest_quaternion_difference": float(np.abs(quats - np.asarray(ref["quats"])).max()),
@@ -1036,6 +1064,155 @@ def phase6_direct(scans, images, gt_rel, dev):
             f"{out['largest_position_difference_from_the_host_loop_m']} m from the JAX host "
             f"loop's (limit {HOST_LOOP_TOL_M})")
     return out
+
+
+def phase7_drivers(scans, images, gt, gt_rel, digest, phase2, phase3, dev):
+    """The per-frame drivers, the default ingests and checkpoint / resume at
+    full width (7a-7f). Raises on a failed gate; prints a line a sub-phase."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch import kernels
+    from lidar_visual_odometry_tpu_torch.eval import metrics
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import CamLidarPipeline
+    from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    with open(DRIVERS_REFERENCE) as f:
+        ref = json.load(f)
+    _check_inputs("7", ref, digest)
+    cfg = SystemConfig()
+    m = SHORT_FRAMES
+
+    def run(fn):
+        """fn() with the launch counts set to 0 just before; returns (its
+        result, the counts, seconds)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts(), time.perf_counter() - t0
+
+    def gate(sub, name, positions, truth, align=True):
+        """The ATE against the JAX run of the same call + ATE_MARGIN; returns
+        the line's text."""
+        ate = metrics.ate_rmse(positions, truth, align=align)
+        want = ref[f"{name}_ate_m"]
+        diff = float(np.abs(positions - np.asarray(ref[f"{name}_positions"])).max())
+        if positions.shape != truth.shape or not np.isfinite(positions).all():
+            raise AssertionError(f"phase {sub}: bad trajectory of shape {positions.shape}")
+        if not ate <= want + ATE_MARGIN:
+            raise AssertionError(f"phase {sub}: {name} ATE {ate} m exceeds the JAX reference "
+                                 f"{want} + {ATE_MARGIN}")
+        return (f"{name} ATE {ate:.5f} m (JAX CPU {want:.5f} m + {ATE_MARGIN}), largest "
+                f"position difference from the JAX trajectory {diff:.5f} m")
+
+    def launched(sub, counts, names):
+        if min(counts[k] for k in names) == 0:
+            raise AssertionError(f"phase {sub}: a kernel of the path was never launched: {counts}")
+
+    def same(sub, what, a, b):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"phase {sub}: {what} differ, by up to "
+                                 f"{float(np.abs(a - b).max())} m")
+
+    odometry_path = ("segment_sum_batched", "associate_kernel", "gn_inner_loop")
+    frames = len(scans) - 1
+
+    # 7a: the default ingests of OdometryPipeline.run_chunked
+    chunked = {}
+    for name, kw in (("odometry_float", {}), ("odometry_uint16", {"quantize": True})):
+        chunked[name], counts, wall = run(lambda: OdometryPipeline(cfg, device=dev).run_chunked(
+            scans, chunk=8, **kw))
+        launched("7a", counts, odometry_path)
+        print(f"phase 7a: {gate('7a', name, chunked[name].positions, gt)}, "
+              f"{frames / wall:.2f} frames/s, launches {counts}", flush=True)
+    fl, u16 = chunked["odometry_float"], chunked["odometry_uint16"]
+
+    # 7b: the per-frame driver runs the float chunk's operations
+    per, counts, wall = run(lambda: OdometryPipeline(cfg, device=dev).run(scans))
+    launched("7b", counts, odometry_path)
+    same("7b", "OdometryPipeline.run's positions and the float run_chunked's",
+         per.positions, fl.positions)
+    print(f"phase 7b: {gate('7b', 'odometry_per_frame', per.positions, gt)}, positions equal "
+          f"7a's float run bit for bit, {len(scans) / wall:.2f} frames/s, launches {counts}",
+          flush=True)
+
+    # 7c: fused SLAM over the default uint16 ingest
+    (odo, mapped), counts, wall = run(lambda: FullPipeline(cfg, device=dev).run_chunked(
+        scans, chunk=8, map_skip=1))
+    launched("7c", counts, odometry_path + ("segment_sum", "block_topk_windowed"))
+    same("7c", "the uint16 SLAM run's odometry positions and 7a's uint16 run's",
+         odo.positions, u16.positions)
+    print(f"phase 7c: {gate('7c', 'slam_uint16_mapped', mapped.positions, gt)}, odometry "
+          f"equal to 7a's uint16 run bit for bit, {frames / wall:.2f} frames/s, launches "
+          f"{counts}", flush=True)
+
+    # 7d: FullPipeline.run on the device map and on the host cube map
+    for device_map in (True, False):
+        (odo, mapped), counts, wall = run(lambda: FullPipeline(
+            cfg, device_map=device_map, device=dev).run(scans[:m]))
+        launched("7d", counts, ("segment_sum", "block_topk_windowed"))
+        same("7d", "FullPipeline.run's odometry positions and 7b's",
+             odo.positions, per.positions[:m])
+        name = f"slam_per_frame_device_map_{str(device_map).lower()}_mapped"
+        print(f"phase 7d: device_map={device_map}, {gate('7d', name, mapped.positions, gt[:m])}, "
+              f"odometry equal to 7b's bit for bit, {m / wall:.2f} frames/s, launches {counts}",
+              flush=True)
+
+    # 7e: CamLidarPipeline over the default uint16 ingest, and per frame
+    cl_cfg = camlidar_config()
+    for name, call, lidar in (
+            ("camlidar_uint16_visual",
+             lambda: CamLidarPipeline(cl_cfg, device=dev).run_chunked(scans[:m], images[:m],
+                                                                        chunk=8),
+             u16.positions[:m]),
+            ("camlidar_per_frame_visual",
+             lambda: CamLidarPipeline(cl_cfg, device=dev).run(scans[:m], images[:m]),
+             per.positions[:m])):
+        cl, counts, wall = run(call)
+        launched("7e", counts, odometry_path + ("lk_level",))
+        if counts["lk_level"] != 4 * (m - 1):
+            raise AssertionError(f"phase 7e: expected 4 lk_level launches a tracked frame: "
+                                 f"{counts['lk_level']} over {m - 1} frames")
+        same("7e", f"{name}'s lidar positions and those of the lidar run with its ingest",
+             cl.lidar_positions, lidar)
+        print(f"phase 7e: {gate('7e', name, cl.visual_positions, gt_rel[:m], align=False)}, "
+              f"lidar positions equal the lidar run's bit for bit, {m / wall:.2f} frames/s, "
+              f"launches {counts}", flush=True)
+
+    # 7f: stop after frame STOP_AFTER, resume, and compare with phases 2 and 3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "odometry.npz")
+        kw = dict(chunk=8, ingest="polar2", checkpoint_path=path)
+        t0 = time.perf_counter()
+        cut = OdometryPipeline(cfg, device=dev).run_chunked(
+            scans, checkpoint_every=CHECKPOINT_EVERY, stop_after=STOP_AFTER, **kw)
+        joined = OdometryPipeline(cfg, device=dev).run_chunked(scans, resume=True, **kw)
+        wall = time.perf_counter() - t0
+        same("7f", "the stopped odometry run's positions and phase 2's",
+             cut.positions, phase2.positions[:len(cut.positions)])
+        same("7f", "the resumed odometry run's positions and phase 2's",
+             joined.positions, phase2.positions)
+        n_cut = len(cut.positions)
+
+        path = os.path.join(tmp, "slam.npz")
+        kw = dict(chunk=8, map_skip=1, ingest="polar2", checkpoint_path=path)
+        t0 = time.perf_counter()
+        FullPipeline(cfg, device=dev).run_chunked(
+            scans, checkpoint_every=CHECKPOINT_EVERY, stop_after=STOP_AFTER, **kw)
+        odo, mapped = FullPipeline(cfg, device=dev).run_chunked(scans, resume=True, **kw)
+        wall_slam = time.perf_counter() - t0
+        same("7f", "the resumed SLAM run's odometry positions and phase 3's",
+             odo.positions, phase3[0].positions)
+        same("7f", "the resumed SLAM run's mapped positions and phase 3's",
+             mapped.positions, phase3[1].positions)
+        left = os.listdir(tmp)
+    print(f"phase 7f: odometry (polar2) stopped after frame {n_cut - 1} and resumed: positions "
+          f"equal phase 2's bit for bit, {frames / wall:.2f} frames/s over both calls; "
+          f"SLAM likewise equal to phase 3's, {frames / wall_slam:.2f} frames/s; the "
+          f"checkpoints {left} removed with their directory", flush=True)
 
 
 def main() -> int:
@@ -1082,8 +1259,11 @@ def main() -> int:
         scans = list(ex.map(seq.scan, range(N_FRAMES)))
         images = list(ex.map(render_image, range(N_FRAMES)))
     gt = np.stack([seq.pose(k)[1] for k in range(N_FRAMES)])
+    scans_sha = _sha256(scans)
+    scans_images_sha = _sha256((*scans, *images))
     print(f"rendered {N_FRAMES} scans and camera images in {time.perf_counter() - t0:.1f} s "
-          f"({workers} threads)", flush=True)
+          f"({workers} threads, one BLAS thread each): sha256 {scans_sha[:16]} (scans), "
+          f"{scans_images_sha[:16]} (scans, then images)", flush=True)
 
     # ---- phase 1: each kernel against its plain version ----
     results = []
@@ -1115,6 +1295,7 @@ def main() -> int:
     with open(REFERENCE) as f:
         reference = json.load(f)
     jax_ate = reference["ate_m"]
+    _check_inputs("2", reference, scans_sha)
     cfg = SystemConfig()
     OdometryPipeline(cfg, device="cuda").run_chunked(scans, chunk=8, ingest="polar2")
     torch.cuda.synchronize()
@@ -1146,6 +1327,7 @@ def main() -> int:
     with open(SLAM_REFERENCE) as f:
         slam_ref = json.load(f)
     jax_map_ate = slam_ref["mapped_ate_m"]
+    _check_inputs("3", slam_ref, scans_sha)
     FullPipeline(cfg, device="cuda").run_chunked(scans, chunk=8, map_skip=1, ingest="polar2")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1180,6 +1362,7 @@ def main() -> int:
     launches.update({name: counts[name] for name in ("segment_sum", "block_topk_windowed")})
 
     # ---- phase 3b: the dense search (K5) on the first frames ----
+    _check_inputs("3b", slam_ref, scans_sha)
     cfg_dense = SystemConfig(mapping=MappingConfig(windowed_nn=False))
     kernels.reset_launch_counts()
     _, mapped_dense = FullPipeline(cfg_dense, device="cuda").run_chunked(
@@ -1203,6 +1386,7 @@ def main() -> int:
     with open(CAMLIDAR_REFERENCE) as f:
         cl_ref = json.load(f)
     jax_ate_visual = cl_ref["ate_visual_m"]
+    _check_inputs("4", cl_ref, scans_images_sha)
     cl_cfg = camlidar_config()
     CamLidarPipeline(cl_cfg, device="cuda").run_chunked(scans, images, chunk=8, ingest="polar2")
     torch.cuda.synchronize()
@@ -1262,14 +1446,17 @@ def main() -> int:
           f"difference from the JAX trajectory {d['largest_position_difference_m']:.5f} m "
           f"(quaternion {d['largest_quaternion_difference']:.5f}; from the JAX host loop's "
           f"{d['largest_position_difference_from_the_host_loop_m']:.5f} m, limit "
-          f"{HOST_LOOP_TOL_M}), inputs equal the "
-          f"reference's: {d['inputs_equal_the_references']}, warm and timed runs bit for bit: "
+          f"{HOST_LOOP_TOL_M}), warm and timed runs bit for bit: "
           f"{d['runs_bit_for_bit']}, "
           f"{d['track_iterations_per_frame']:.2f} tracker iterations and "
           f"{d['ba_rounds_per_frame']:.2f} BA rounds a frame, peak device memory "
           f"{d['peak_device_memory_mib']:.1f} MiB, launches of the port's kernels "
           f"{d['launches']}", flush=True)
     print(f"phases 0-6 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 7: the per-frame drivers, the default ingests, resume ----
+    phase7_drivers(scans, images, gt, gt_rel, scans_images_sha, res, (odo, mapped), dev)
+    print(f"phases 0-7 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for r in results:
         r["launches"] = launches[r["name"]]

@@ -9,9 +9,11 @@ stored map (kernel K4 or K5) → merge. The correction ``wmap_T_odom``
 (``laserMapping.cpp:142-152``) lives in the carried state, so frames between
 mapped ones (``map_skip`` ≥ 2) compose it with their odometry pose.
 
-``slam_chunk_polar`` runs K frames of the whole lidar chain, decode →
-features → scan-to-scan → scan-to-map → merge, as the reference's fused chunk
-program does.
+``slam_chunk_polar`` (packed polar images) and ``slam_chunk_quantized``
+(uint16 points and counts, the reference's default ingest) run K frames of the
+whole lidar chain, decode → features → scan-to-scan → scan-to-map → merge, as
+the reference's fused chunk programs do. ``DeviceMapping`` is the per-frame
+driver of the same map.
 """
 
 from __future__ import annotations
@@ -24,13 +26,14 @@ import torch
 
 from ..ops import pointcloud as pc
 from ..ops import se3
+from ..ops.features import ScanFeatures
 from ..ops.pointcloud import PointBatch, voxel_downsample
 from ..ops.voxel_map import voxel_merge
 from ..utils.config import LidarConfig, MappingConfig, OdometryConfig
 from ..utils.device import resolve_device
 from .lidar_mapping import solve_map_pose
-from .lidar_odometry import OdometryState, odometry_step
-from .scan_registration import register_polar_impl
+from .lidar_odometry import OdometryState, dequantize, odometry_step
+from .scan_registration import register_polar_impl, register_scan_impl
 
 
 class DeviceMapState(NamedTuple):
@@ -102,16 +105,21 @@ def device_mapping_impl(
     return new_state, refined
 
 
-def _slam_scan(odo_state: OdometryState, map_state: DeviceMapState, payload, feats_of,
+def _apply_correction(correction: se3.Pose, odom_pose: se3.Pose) -> se3.Pose:
+    return se3.se3_compose(correction, odom_pose)
+
+
+def _slam_scan(odo_state: OdometryState, map_state: DeviceMapState, n_frames: int, feats_of,
                odom_cfg: OdometryConfig, map_cfg: MappingConfig, start_idx: int,
                map_skip: int):
-    """Frame by frame: features → odometry → mapping on frames whose global
-    index ``start_idx + i`` is a multiple of ``map_skip``, else the carried
-    correction composed with the odometry pose. Returns (odometry state, map
-    state, odometry poses (K,), mapped poses (K,))."""
+    """Frame by frame: features (``feats_of(i)``) → odometry → mapping on
+    frames whose global index ``start_idx + i`` is a multiple of
+    ``map_skip``, else the carried correction composed with the odometry
+    pose. Returns (odometry state, map state, odometry poses (K,), mapped
+    poses (K,))."""
     odom, mapped = [], []
-    for i in range(len(payload)):
-        feats = feats_of(payload[i])
+    for i in range(n_frames):
+        feats = feats_of(i)
         odo_state, pose_w = odometry_step(odo_state, feats, odom_cfg)
         if map_skip <= 1 or (start_idx + i) % map_skip == 0:
             map_state, refined = device_mapping_impl(
@@ -119,7 +127,7 @@ def _slam_scan(odo_state: OdometryState, map_state: DeviceMapState, payload, fea
                 feats.less_flat.xyz, feats.less_flat.mask, pose_w, map_cfg,
             )
         else:
-            refined = se3.se3_compose(map_state.correction, pose_w)
+            refined = _apply_correction(map_state.correction, pose_w)
         odom.append(pose_w)
         mapped.append(refined)
 
@@ -147,6 +155,58 @@ def slam_chunk_polar(
         imgs = pc.polar_image_to_tensor(imgs, dev)
     imgs = imgs.to(dev)
     return _slam_scan(
-        odo_state, map_state, imgs, lambda img: register_polar_impl(img, lidar_cfg).features,
+        odo_state, map_state, imgs.shape[0],
+        lambda i: register_polar_impl(imgs[i], lidar_cfg).features,
         odom_cfg, map_cfg, start_idx, map_skip,
     )
+
+
+def slam_chunk_quantized(
+    odo_state: OdometryState,
+    map_state: DeviceMapState,
+    qpts: torch.Tensor,      # (K, N, 3) uint16 codes (or int16 with their bits)
+    counts: torch.Tensor,    # (K,) int32
+    lidar_cfg: LidarConfig,
+    odom_cfg: OdometryConfig,
+    map_cfg: MappingConfig,
+    start_idx: int = 0,
+    map_skip: int = 1,
+):
+    """K quantised scans (``lidar_odometry.quantize_scan``) through the whole
+    lidar chain, decoded on the device with the mask from the counts. Returns
+    (odometry state, map state, odometry poses (K,), mapped poses (K,))."""
+    idx = torch.arange(qpts.shape[1], dtype=torch.int32, device=qpts.device)
+    return _slam_scan(
+        odo_state, map_state, qpts.shape[0],
+        lambda i: register_scan_impl(dequantize(qpts[i]), idx < counts[i], lidar_cfg).features,
+        odom_cfg, map_cfg, start_idx, map_skip,
+    )
+
+
+class DeviceMapping:
+    """Per-frame driver of the device-resident map: the same state and step
+    as the chunk programs, one frame at a time, with no host synchronisation."""
+
+    def __init__(self, cfg: MappingConfig = MappingConfig(), device="cuda"):
+        self.cfg = cfg
+        self.state = init_state(cfg, device)
+        self._frame = 0
+
+    def process(self, feats: ScanFeatures, odom_pose: se3.Pose, skip: int = 1) -> se3.Pose:
+        """Refine ``odom_pose`` against the map every ``skip`` frames (≡
+        mapping_skip_frame); in between, compose the last correction."""
+        if self._frame % skip == 0:
+            self.state, refined = device_mapping_impl(
+                self.state, feats.less_sharp.xyz, feats.less_sharp.mask,
+                feats.less_flat.xyz, feats.less_flat.mask, odom_pose, self.cfg,
+            )
+        else:
+            refined = _apply_correction(self.state.correction, odom_pose)
+        self._frame += 1
+        return refined
+
+    def export_map(self) -> tuple[np.ndarray, np.ndarray]:
+        """Host copy of the live map: (corner, surf) world points, for
+        ``lidar_mapping.CubeMap.insert``."""
+        st = self.state
+        return (st.corner[st.corner_mask].cpu().numpy(), st.surf[st.surf_mask].cpu().numpy())

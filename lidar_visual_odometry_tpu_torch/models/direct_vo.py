@@ -35,13 +35,14 @@ import numpy as np
 import torch
 
 from ..ops import image, se3
+from ..utils import checkpoint as ckpt
 from ..utils.config import VisualConfig
 from ..utils.device import resolve_device
 from . import keyframe as kfm
 from . import tracker_direct, window_ba
 from .cam_lidar_pipeline import _to_uint8
-from .lidar_odometry import QUANT_OFFSET, QUANT_SCALE
-from .pipeline import _check_no_checkpoint
+from .lidar_odometry import quantize_points, upload
+from .lidar_odometry import dequantize as decode_points
 
 # The JAX package's sampler precisions for the BA (its one-hot MXU passes)
 SAMPLE_PRECISIONS = ("high", "bf16", "highest")
@@ -226,14 +227,6 @@ def _direct_step(state: DirectChunkState, img: torch.Tensor, pts_cam: torch.Tens
     return new_state, new_state.pose_w
 
 
-def decode_points(qpts: torch.Tensor) -> torch.Tensor:
-    """Camera-frame points from their uint16 codes, given as uint16 or as
-    the int16 with the same bits (the upload's form; torch's uint16 is a
-    dtype with few operations): q·QUANT_SCALE + QUANT_OFFSET in float32."""
-    q = qpts.to(torch.int32) & 0xFFFF
-    return q.to(torch.float32) * QUANT_SCALE + QUANT_OFFSET
-
-
 def direct_chunk(state: DirectChunkState, imgs: torch.Tensor, pts: torch.Tensor,
                  masks: torch.Tensor, cam, cfg: VisualConfig, kf_ratio: float = 1.1,
                  run_ba: bool = True, point_cap: int = 2048, timer=_untimed):
@@ -273,13 +266,6 @@ def direct_chunk_state_from_numpy(arrays: Mapping[str, np.ndarray], levels: int,
     return DirectChunkState(pyrs, points, point_mask, poses_q, poses_t, count, pose_w, vel)
 
 
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
-
-
 class DirectVOChunked:
     """Host driver of the chunked direct-VO path on ``device`` (default
     CUDA): a chunk's frames go up in one upload each of images, clouds and
@@ -307,44 +293,56 @@ class DirectVOChunked:
         value is above 1.5) and its unquantised cloud; the later frames
         travel as uint8 images and uint16 codes. Returns (positions (N, 3),
         quaternions (N, 4), wall seconds), frame 0 at the identity. The
-        parameters are the reference's; checkpoint, resume and
-        ``stop_after`` raise ``NotImplementedError`` (ROADMAP A.7)."""
-        _check_no_checkpoint(checkpoint_path, checkpoint_every, resume, stop_after)
+        parameters are the reference's; a checkpoint carries the window state
+        and the trajectory of frames 1 on."""
         dev = self.device
         n = len(images)
-        im0 = np.asarray(images[0], np.float32)
-        if im0.max() > 1.5:
-            im0 = im0 / 255.0
-        state = init_direct_state(
-            torch.from_numpy(im0).to(dev),
-            torch.from_numpy(np.asarray(clouds[0], np.float32)).to(dev),
-            torch.from_numpy(np.asarray(cloud_masks[0], bool)).to(dev),
-            self.cam, self.cfg, point_cap=self.point_cap)
+        if resume:
+            data = np.load(checkpoint_path)
+            start = int(data["frame_idx"])
+            first = {"q": data["traj_q"], "t": data["traj_t"]}
+            _, state = ckpt.load_chunk_states(checkpoint_path, dev)
+        else:
+            im0 = np.asarray(images[0], np.float32)
+            if im0.max() > 1.5:
+                im0 = im0 / 255.0
+            state = init_direct_state(
+                torch.from_numpy(im0).to(dev),
+                torch.from_numpy(np.asarray(clouds[0], np.float32)).to(dev),
+                torch.from_numpy(np.asarray(cloud_masks[0], bool)).to(dev),
+                self.cam, self.cfg, point_cap=self.point_cap)
+            start = 1
+            first = {"q": np.zeros((0, 4), np.float32), "t": np.zeros((0, 3), np.float32)}
+        rec = ckpt.RunRecord(checkpoint_path, checkpoint_every, stop_after, start, first)
 
         t0 = time.perf_counter()
-        qs, ts = [], []
-        for s in range(1, n, chunk):
+        for s in range(start, n, chunk):
             batch = range(s, min(s + chunk, n))
             with self.stage_timer("upload (images, codes, masks)"):
                 imgs = np.stack([_to_uint8(images[k]) for k in batch])
-                qpts = np.stack([
-                    (np.clip((np.asarray(clouds[k]) - QUANT_OFFSET) / QUANT_SCALE, 0.0, 65535.0)
-                     + 0.5).astype(np.uint16) for k in batch])
+                qpts = np.stack([quantize_points(np.asarray(clouds[k])) for k in batch])
                 ms = np.stack([np.asarray(cloud_masks[k], bool) for k in batch])
-                up = (_upload(imgs, dev), _upload(qpts.view(np.int16), dev), _upload(ms, dev))
+                up = (upload(imgs, dev), upload(qpts, dev), upload(ms, dev))
             state, poses = direct_chunk(
                 state, *up, self.cam, self.cfg, kf_ratio=self.kf_ratio, run_ba=self.run_ba,
                 point_cap=self.point_cap, timer=self.stage_timer)
-            qs.append(poses.q)
-            ts.append(poses.t)
+            rec.append(q=poses.q, t=poses.t)
+            next_s = min(s + chunk, n)
+            if rec.snapshot_due(next_s):
+                done = next_s - 1   # rows of frames 1 on
+                ckpt.save_checkpoint(checkpoint_path, frame_idx=next_s,
+                                     trajectory_q=rec.host("q")[:done],
+                                     trajectory_t=rec.host("t")[:done], direct_chunk=state)
+            if rec.stops(next_s):
+                n = next_s
+                break
 
-        ident = torch.tensor([[1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]], device=dev)
-        poses = torch.cat([ident, torch.cat([torch.cat(qs), torch.cat(ts)], dim=1)]
-                          if qs else [ident]).cpu().numpy()
-        out_q, out_t = np.ascontiguousarray(poses[:, :4]), np.ascontiguousarray(poses[:, 4:])
+        ident = np.array([[1.0, 0.0, 0.0, 0.0]], np.float32)
+        out_q = np.concatenate([ident, rec.host("q")[:n - 1]])
+        out_t = np.concatenate([np.zeros((1, 3), np.float32), rec.host("t")[:n - 1]])
         wall = time.perf_counter() - t0
         if progress:
-            done = max(n - 1, 1)
+            done = max(n - start, 1)
             print(f"direct-VO: {n} frames ({done} computed) in {wall:.2f} s "
                   f"→ {done / wall:.1f} frames/s")
         return out_t, out_q, wall

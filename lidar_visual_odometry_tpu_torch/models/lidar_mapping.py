@@ -19,6 +19,14 @@ within the 1 m gates it finds the same neighbours.)
 
 The adaptive re-association checks its exit on the host once per round from
 the third round on, as ``lidar_odometry.scan_to_scan_impl`` does.
+
+``LidarMapping`` is the host cube-map driver (``FullPipeline(device_map=False)``):
+``CubeMap`` keeps the reference's unbounded store of 50 m cubes in numpy
+(insertion with a per-cube voxel filter, ``laserMapping.cpp:736-801``; the
+5 × 5 × 3 neighbourhood gather, ``:512-537``), and ``mapping_step`` refines
+each frame's pose against the gathered submap on the device. The default local
+caps (16384 corner, 32768 surf points) are whole 512-point chunks, so the
+search is K4's cell window.
 """
 
 from __future__ import annotations
@@ -26,13 +34,16 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels import topk
 from ..kernels.nn import bake_mask
 from ..ops import fit, gn, lidar_factors as lf, se3
-from ..ops.pointcloud import PointBatch
+from ..ops.features import ScanFeatures
+from ..ops.pointcloud import PointBatch, voxel_downsample
 from ..utils.config import MappingConfig
+from ..utils.device import resolve_device
 
 C_TILE = 512  # candidate chunk of the windowed search (the reference's c_tile)
 
@@ -150,3 +161,131 @@ def solve_map_pose(
         prev = pose
         pose = outer_once(pose)
     return pose
+
+
+def mapping_step(
+    corner_pts: torch.Tensor, corner_mask: torch.Tensor,
+    surf_pts: torch.Tensor, surf_mask: torch.Tensor,
+    local: LocalMap,
+    init_pose: se3.Pose,
+    cfg: MappingConfig,
+) -> se3.Pose:
+    """Refine the frame's world pose against the local submap: the features
+    (lidar frame) voxel-downsampled at the mapping leaves (kernel K1, flat;
+    ``laserMapping.cpp:542-550``), then ``solve_map_pose`` from ``init_pose``
+    (wmap_T_odom ∘ the odometry pose, ``laserMapping.cpp:142-146``)."""
+    corner_ds = voxel_downsample(corner_pts, corner_mask, leaf=cfg.corner_leaf, max_out=4096)
+    surf_ds = voxel_downsample(surf_pts, surf_mask, leaf=cfg.surf_leaf, max_out=8192)
+    return solve_map_pose(corner_ds, surf_ds, local.corner, local.surf, init_pose, cfg)
+
+
+class CubeMap:
+    """Host store of 50 m cubes for one feature class (numpy), the
+    reference's own host structure."""
+
+    def __init__(self, cube_size: float, leaf: float, device="cuda"):
+        self.cube_size = cube_size
+        self.leaf = leaf
+        self.device = resolve_device(device)
+        self.cubes: dict[tuple[int, int, int], np.ndarray] = {}
+
+    def _key(self, xyz: np.ndarray) -> np.ndarray:
+        # cube i covers [(i-0.5)·50, (i+0.5)·50) (laserMapping.cpp:312-321
+        # with the negative-floor correction)
+        return np.floor(xyz / self.cube_size + 0.5).astype(np.int64)
+
+    def insert(self, xyz: np.ndarray) -> None:
+        """Insert points, then re-voxel-filter the touched cubes
+        (laserMapping.cpp:736-801)."""
+        if xyz.size == 0:
+            return
+        keys = self._key(xyz)
+        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        for i, k in enumerate(map(tuple, uniq)):
+            pts = xyz[inv == i]
+            old = self.cubes.get(k)
+            allpts = pts if old is None else np.concatenate([old, pts])
+            self.cubes[k] = self._voxel_filter(allpts)
+
+    def _voxel_filter(self, pts: np.ndarray) -> np.ndarray:
+        q = np.floor(pts / self.leaf).astype(np.int64)
+        _, idx_start, inv = np.unique(q, axis=0, return_index=True, return_inverse=True)
+        inv = inv.reshape(-1)
+        sums = np.zeros((idx_start.shape[0], 3), np.float64)
+        np.add.at(sums, inv, pts)
+        cnt = np.bincount(inv, minlength=idx_start.shape[0])[:, None]
+        return (sums / cnt).astype(np.float32)
+
+    def gather_local(self, center_xyz: np.ndarray, radius: tuple[int, int, int],
+                     cap: int) -> PointBatch:
+        """The (2rx+1)×(2ry+1)×(2rz+1) cube neighbourhood around the pose,
+        padded to ``cap`` (laserMapping.cpp:512-537), on the map's device."""
+        ck = self._key(center_xyz[None])[0]
+        parts = []
+        for dx in range(-radius[0], radius[0] + 1):
+            for dy in range(-radius[1], radius[1] + 1):
+                for dz in range(-radius[2], radius[2] + 1):
+                    c = self.cubes.get((ck[0] + dx, ck[1] + dy, ck[2] + dz))
+                    if c is not None:
+                        parts.append(c)
+        pts = np.concatenate(parts) if parts else np.zeros((0, 3), np.float32)
+        if pts.shape[0] > cap:
+            # deterministic subsample: every k-th point
+            stride = pts.shape[0] // cap + 1
+            pts = pts[::stride][:cap]
+        out = np.zeros((cap, 3), np.float32)
+        mask = np.zeros((cap,), bool)
+        out[: pts.shape[0]] = pts
+        mask[: pts.shape[0]] = True
+        return PointBatch(torch.from_numpy(out).to(self.device),
+                          torch.from_numpy(mask).to(self.device))
+
+
+class LidarMapping:
+    """Host cube-map driver (≡ laserMapping): the map-corrected pose, the
+    submap gathered on the host, the solve on the device, the cube
+    bookkeeping on the host (one synchronisation a frame)."""
+
+    def __init__(self, cfg: MappingConfig = MappingConfig(), device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.corner_map = CubeMap(cfg.cube_size, cfg.corner_leaf, self.device)
+        self.surf_map = CubeMap(cfg.cube_size, cfg.surf_leaf, self.device)
+        # wmap_T_odom drift correction (laserMapping.cpp:110-117)
+        self.correction = se3.identity_pose(self.device)
+        self.initialized = False
+
+    def process(self, feats: ScanFeatures, odom_pose: se3.Pose) -> se3.Pose:
+        """Refine the odometry pose against the map, insert the frame's
+        features at the refined pose; returns the refined world pose."""
+        corner = feats.less_sharp.xyz.cpu().numpy()
+        corner_m = feats.less_sharp.mask.cpu().numpy()
+        surf = feats.less_flat.xyz.cpu().numpy()
+        surf_m = feats.less_flat.mask.cpu().numpy()
+
+        init = se3.se3_compose(self.correction, odom_pose)
+        if self.initialized:
+            t_np = init.t.cpu().numpy()
+            local = LocalMap(
+                self.corner_map.gather_local(t_np, self.cfg.submap_radius,
+                                             self.cfg.max_corner_map_local),
+                self.surf_map.gather_local(t_np, self.cfg.submap_radius,
+                                           self.cfg.max_surf_map_local),
+            )
+            refined = mapping_step(feats.less_sharp.xyz, feats.less_sharp.mask,
+                                   feats.less_flat.xyz, feats.less_flat.mask,
+                                   local, init, self.cfg)
+        else:
+            refined = init
+            self.initialized = True
+
+        # wmap_T_odom = refined ∘ odom⁻¹ (transformUpdate)
+        self.correction = se3.se3_compose(refined, se3.se3_inverse(odom_pose))
+
+        # insert the features in the world frame
+        Rw = se3.quat_to_matrix(refined.q).cpu().numpy()
+        tw = refined.t.cpu().numpy()
+        self.corner_map.insert(corner[corner_m] @ Rw.T + tw)
+        self.surf_map.insert(surf[surf_m] @ Rw.T + tw)
+        return refined

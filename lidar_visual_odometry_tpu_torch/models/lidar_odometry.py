@@ -15,6 +15,13 @@ round, and only the rounds a frame needs are run.
 
 World pose integrates as ``T_w_curr = T_w_last ∘ T_last_curr``
 (``laserOdometry.cpp:581-582``).
+
+Drivers: ``LidarOdometry`` takes one frame's features at a time; the chunk
+programs ``odometry_chunk`` (float32 points and masks), ``odometry_chunk_quantized``
+(uint16 points at 3.9 mm and a count a frame, ``quantize_scan``) and
+``odometry_chunk_polar`` (packed polar images) run K frames of registration
+and scan-to-scan each. All of them run the same operations frame by frame,
+so a frame's pose does not depend on the driver that ran it.
 """
 
 from __future__ import annotations
@@ -31,10 +38,10 @@ from ..ops import pointcloud as pc
 from ..ops.features import FeatureCloud, ScanFeatures
 from ..utils.config import LidarConfig, OdometryConfig
 from ..utils.device import resolve_device
-from .scan_registration import register_polar_impl
+from .scan_registration import register_polar_impl, register_scan_impl
 
-# Host-to-device quantisation of camera-frame clouds (the direct VO chunk's
-# upload): uint16 at 3.9 mm over ±128 m, decoded as q·QUANT_SCALE +
+# Host-to-device quantisation of raw scans and camera-frame clouds: uint16 at
+# 3.9 mm over ±128 m (max_range is 120 m), decoded as q·QUANT_SCALE +
 # QUANT_OFFSET (the JAX package's ``lidar_odometry.py:216-217``).
 QUANT_SCALE = 256.0 / 65536.0
 QUANT_OFFSET = -128.0
@@ -131,6 +138,14 @@ def scan_to_scan_impl(
     return pose
 
 
+scan_to_scan = scan_to_scan_impl
+
+
+def integrate_world(pose_w: se3.Pose, rel: se3.Pose) -> se3.Pose:
+    """T_w_curr = T_w_last ∘ T_last_curr (laserOdometry.cpp:581-582)."""
+    return se3.se3_compose(pose_w, rel)
+
+
 def init_state(feats: ScanFeatures) -> OdometryState:
     ident = se3.identity_pose(feats.less_sharp.xyz.device)
     return OdometryState(ident, ident, feats.less_sharp, feats.less_flat)
@@ -151,6 +166,81 @@ def odometry_step(
     return OdometryState(pose_w, rel, feats.less_sharp, feats.less_flat), pose_w
 
 
+def quantize_points(xyz: np.ndarray) -> np.ndarray:
+    """Host side: points → their uint16 codes at 3.9 mm, rounded to the
+    nearest and clamped to ±128 m, in the arithmetic of ``xyz``'s dtype."""
+    return (np.clip((xyz - QUANT_OFFSET) / QUANT_SCALE, 0.0, 65535.0) + 0.5).astype(np.uint16)
+
+
+def quantize_scan(pts, capacity: int):
+    """Host side: (n, ≥3) float scan → ((capacity, 3) uint16, count), the
+    first ``min(n, capacity)`` points at 3.9 mm in float32. The rows beyond
+    the count are left unset: the decode masks them before any use."""
+    n = min(pts.shape[0], capacity)
+    out = np.empty((capacity, 3), np.uint16)
+    out[:n] = quantize_points(pts[:n, :3].astype(np.float32))
+    return out, np.int32(n)
+
+
+def dequantize(qpts: torch.Tensor) -> torch.Tensor:
+    """Points from their uint16 codes, given as uint16 or as the int16 with
+    the same bits (torch's uint16 has few operations): q·QUANT_SCALE +
+    QUANT_OFFSET in float32."""
+    q = qpts.to(torch.int32) & 0xFFFF
+    return q.to(torch.float32) * QUANT_SCALE + QUANT_OFFSET
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host array → tensor on ``dev``; uint16 travels as int16 with the same
+    bits (``dequantize``), through pinned memory to a card."""
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _run_frames(state: OdometryState, n_frames: int, feats_of, odom_cfg: OdometryConfig):
+    qs, ts = [], []
+    for k in range(n_frames):
+        state, pose_w = odometry_step(state, feats_of(k), odom_cfg)
+        qs.append(pose_w.q)
+        ts.append(pose_w.t)
+    return state, se3.Pose(torch.stack(qs), torch.stack(ts))
+
+
+def odometry_chunk(
+    state: OdometryState,
+    scans: torch.Tensor,     # (K, N, 3) float32
+    masks: torch.Tensor,     # (K, N) bool
+    lidar_cfg: LidarConfig,
+    odom_cfg: OdometryConfig,
+) -> tuple[OdometryState, se3.Pose]:
+    """K padded raw scans: registration → scan-to-scan, frame by frame.
+    Returns (final state, world poses stacked (K, 4) / (K, 3))."""
+    return _run_frames(
+        state, scans.shape[0],
+        lambda k: register_scan_impl(scans[k], masks[k], lidar_cfg).features, odom_cfg)
+
+
+def odometry_chunk_quantized(
+    state: OdometryState,
+    qpts: torch.Tensor,      # (K, N, 3) uint16 codes (or int16 with their bits)
+    counts: torch.Tensor,    # (K,) int32, points a frame (front-packed)
+    lidar_cfg: LidarConfig,
+    odom_cfg: OdometryConfig,
+) -> tuple[OdometryState, se3.Pose]:
+    """``odometry_chunk`` over quantised scans: decoded on the device, the
+    mask from the counts (codes beyond a frame's count are masked before any
+    use)."""
+    idx = torch.arange(qpts.shape[1], dtype=torch.int32, device=qpts.device)
+    return _run_frames(
+        state, qpts.shape[0],
+        lambda k: register_scan_impl(dequantize(qpts[k]), idx < counts[k], lidar_cfg).features,
+        odom_cfg)
+
+
 def odometry_chunk_polar(
     state: OdometryState,
     imgs,                 # (K, R, W, 1|2) uint16 numpy, or int32 cells on a device
@@ -164,13 +254,27 @@ def odometry_chunk_polar(
     if isinstance(imgs, np.ndarray):
         imgs = pc.polar_image_to_tensor(imgs, dev)
     imgs = imgs.to(dev)
-    qs, ts = [], []
-    for k in range(imgs.shape[0]):
-        feats = register_polar_impl(imgs[k], lidar_cfg).features
-        state, pose_w = odometry_step(state, feats, odom_cfg)
-        qs.append(pose_w.q)
-        ts.append(pose_w.t)
-    return state, se3.Pose(torch.stack(qs), torch.stack(ts))
+    return _run_frames(state, imgs.shape[0],
+                       lambda k: register_polar_impl(imgs[k], lidar_cfg).features, odom_cfg)
+
+
+class LidarOdometry:
+    """Frame-to-frame driver; the state stays on the features' device."""
+
+    def __init__(self, cfg: OdometryConfig = OdometryConfig()):
+        self.cfg = cfg
+        self.state: OdometryState | None = None
+
+    def process(self, feats: ScanFeatures,
+                init_rel: se3.Pose | None = None) -> tuple[se3.Pose, se3.Pose]:
+        """Feed one frame's features; returns (world pose, relative pose).
+        The first frame seeds the state at the identity. ``init_rel``
+        overrides the constant-velocity warm start."""
+        if self.state is None:
+            self.state = init_state(feats)
+            return self.state.pose_w, self.state.pose_rel
+        self.state, pose_w = odometry_step(self.state, feats, self.cfg, init_rel)
+        return pose_w, self.state.pose_rel
 
 
 def _feature_cloud_from_numpy(arrays: Mapping[str, np.ndarray], prefix: str,
@@ -183,6 +287,19 @@ def _feature_cloud_from_numpy(arrays: Mapping[str, np.ndarray], prefix: str,
         get("xyz", torch.float32), get("ring", torch.int32),
         get("rel_time", torch.float32), get("mask", torch.bool),
     )
+
+
+def odometry_state_to_numpy(state: OdometryState) -> dict[str, np.ndarray]:
+    """The inverse of ``odometry_state_from_numpy``: the keys and dtypes the
+    JAX package's checkpoint writes for an odometry state."""
+    out = {}
+    for name, pose in (("pose_w", state.pose_w), ("pose_rel", state.pose_rel)):
+        out[f"{name}_q"] = pose.q.detach().cpu().numpy()
+        out[f"{name}_t"] = pose.t.detach().cpu().numpy()
+    for prefix, fc in (("prev_ls", state.prev_less_sharp), ("prev_lf", state.prev_less_flat)):
+        for key in ("xyz", "ring", "rel_time", "mask"):
+            out[f"{prefix}_{key}"] = getattr(fc, key).detach().cpu().numpy()
+    return out
 
 
 def odometry_state_from_numpy(arrays: Mapping[str, np.ndarray],

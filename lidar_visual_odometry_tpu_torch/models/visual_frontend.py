@@ -38,6 +38,7 @@ from ..ops import gn, image, knn, lk, se3
 from ..ops.pointcloud import _recip32
 from ..utils.config import VisualConfig
 from ..utils.device import resolve_device
+from .lidar_odometry import dequantize
 
 SOLVE_CHECK_EVERY = 8
 
@@ -377,26 +378,55 @@ def solve_and_update(uv1, ok, prev_dc: DepthCloud, table: FeatureTable, pose_w: 
     return table, rel, new_pose_w
 
 
-def chunk_frame_step(carry: VisualChunkState, img: torch.Tensor, pts: torch.Tensor,
-                     m: torch.Tensor, cam, cfg: VisualConfig):
-    """One visual frame: dequantize → CLAHE → pyramid → LK forward/reverse →
-    depth association + pose GN → replenish. Returns (carry, T_cur_prev,
-    the count of tracked features before replenishment)."""
-    if img.dtype == torch.uint8:
-        img = img.to(torch.float32) * (1.0 / 255.0)
-    if cfg.use_clahe:
-        img = image.clahe(img, grid=cfg.clahe_grid, clip_limit=cfg.clahe_clip)
-    pyr = tuple(image.build_pyramid(img, cfg.lk_levels))
-    dc = build_depth_cloud(pts, m)
-    table = carry.table
-    uv1, ok = lk.track_pyramid_reverse_checked(
-        carry.prev_pyr, pyr, table.uv, table.active, table.flow,
+def update_after_external_solve(uv1, ok, prev_dc: DepthCloud, table: FeatureTable,
+                                pose_w: se3.Pose, rel: se3.Pose,
+                                cam) -> tuple[FeatureTable, se3.Pose]:
+    """The state update of ``solve_and_update`` for a relative pose solved
+    elsewhere (the reference's sharded visual step): the same gates and the
+    same table and pose propagation."""
+    active, un0, _, depth, has_depth, _ = depth_gates(uv1, ok, prev_dc, table, pose_w, cam)
+    return apply_solution(uv1, table, active, un0, depth, has_depth, rel, pose_w)
+
+
+def _track(prev_pyr: tuple, pyr: tuple, table: FeatureTable, cfg: VisualConfig):
+    """Forward / reverse-checked KLT of the table's features (kernel K6)."""
+    return lk.track_pyramid_reverse_checked(
+        prev_pyr, pyr, table.uv, table.active, table.flow,
         win=cfg.lk_window, iters=cfg.lk_iters, levels=cfg.lk_levels,
         max_reverse_err=cfg.reverse_check_px, reverse_levels=cfg.lk_reverse_levels or None,
         iters_coarse=cfg.lk_iters_coarse or None, eps=cfg.lk_eps, affine=cfg.lk_affine,
         reverse_affine=cfg.lk_reverse_affine,
     )
-    table, rel, pose_w = solve_and_update(uv1, ok, carry.prev_dc, table, carry.pose_w,
+
+
+def visual_step(prev_pyr: tuple, cur_pyr: tuple, prev_dc: DepthCloud, table: FeatureTable,
+                pose_w: se3.Pose, warm_rel: se3.Pose, cam,
+                cfg: VisualConfig) -> tuple[FeatureTable, se3.Pose, se3.Pose]:
+    """One frame of visual odometry: track → solve and update → replenish.
+    Returns (table, T_cur_prev, Tw)."""
+    uv1, ok = _track(prev_pyr, cur_pyr, table, cfg)
+    table, rel, new_pose_w = solve_and_update(uv1, ok, prev_dc, table, pose_w, warm_rel, cam,
+                                              cfg)
+    return _replenish(table, cur_pyr[0], cam, new_pose_w, cfg), rel, new_pose_w
+
+
+def chunk_frame_step(carry: VisualChunkState, img: torch.Tensor, pts: torch.Tensor,
+                     m: torch.Tensor, cam, cfg: VisualConfig):
+    """One visual frame: dequantize → CLAHE → pyramid → LK forward/reverse →
+    depth association + pose GN → replenish. Images come as float32 or uint8,
+    clouds as float32 or uint16 codes (as int16 with their bits, the upload's
+    form). Returns (carry, T_cur_prev, the count of tracked features before
+    replenishment)."""
+    if img.dtype == torch.uint8:
+        img = img.to(torch.float32) * (1.0 / 255.0)
+    if pts.dtype in (torch.int16, torch.uint16):
+        pts = dequantize(pts)
+    if cfg.use_clahe:
+        img = image.clahe(img, grid=cfg.clahe_grid, clip_limit=cfg.clahe_clip)
+    pyr = tuple(image.build_pyramid(img, cfg.lk_levels))
+    dc = build_depth_cloud(pts, m)
+    uv1, ok = _track(carry.prev_pyr, pyr, carry.table, cfg)
+    table, rel, pose_w = solve_and_update(uv1, ok, carry.prev_dc, carry.table, carry.pose_w,
                                           carry.warm_rel, cam, cfg)
     n_tracked = table.active.sum()
     stats["frames"] += 1
@@ -452,3 +482,37 @@ def visual_chunk_state_from_numpy(arrays: Mapping[str, np.ndarray], levels: int,
     pyr = tuple(nxt() for _ in range(levels))
     dc = DepthCloud(nxt(), nxt(), nxt(torch.bool))
     return VisualChunkState(table, pose_w, warm_rel, pyr, dc)
+
+
+class VisualOdometry:
+    """Per-frame driver of the visual frontend (≡ CamLidarProcess thread C
+    and the Frontend state)."""
+
+    def __init__(self, cam, cfg: VisualConfig = VisualConfig(), device="cuda"):
+        dev = resolve_device(device)
+        self.cam = cam
+        self.cfg = cfg
+        self.table = empty_table(cfg.max_tracked, dev)
+        self.pose_w = se3.identity_pose(dev)
+        self.warm_rel = se3.identity_pose(dev)
+        self.prev_pyr = None
+        self.prev_dc = None
+
+    def process(self, img: torch.Tensor, pts_cam: torch.Tensor,
+                pts_mask: torch.Tensor) -> se3.Pose:
+        """img (H, W) float32 in [0, 1]; pts_cam (M, 3) lidar points in the
+        camera frame, pts_mask (M,). The first frame only seeds features.
+        Returns the camera's world pose."""
+        if self.cfg.use_clahe:
+            img = image.clahe(img, grid=self.cfg.clahe_grid, clip_limit=self.cfg.clahe_clip)
+        pyr = tuple(image.build_pyramid(img, self.cfg.lk_levels))
+        dc = build_depth_cloud(pts_cam, pts_mask)
+        if self.prev_pyr is None:
+            self.table = _replenish(self.table, pyr[0], self.cam, self.pose_w, self.cfg)
+        else:
+            self.table, self.warm_rel, self.pose_w = visual_step(
+                self.prev_pyr, pyr, self.prev_dc, self.table, self.pose_w, self.warm_rel,
+                self.cam, self.cfg)
+        self.prev_pyr = pyr
+        self.prev_dc = dc
+        return self.pose_w

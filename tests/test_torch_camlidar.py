@@ -337,17 +337,33 @@ def test_visual_chunk_state_from_numpy_roundtrips_a_jax_checkpoint(tmp_path, jax
     assert int(n) > 30 and torch.isfinite(nxt.pose_w.t).all()
 
 
-def test_unported_modes_raise(seq_data, port_cfg, monkeypatch):
+def test_unported_modes_raise(seq_data, port_cfg, monkeypatch, tmp_path):
+    """The coupled and mapping modes raise, naming ROADMAP A.8. The options
+    A.7 ported run (tests/test_torch_visual_drivers.py holds them to the JAX
+    package): the default "uint16" ingest, whose lidar half is the uint16
+    odometry chunk bit for bit; a run stopped after frame 1 with a snapshot
+    and resumed, equal to the uninterrupted one bit for bit; and the
+    per-frame ``run``, whose lidar half is ``OdometryPipeline.run``'s."""
     _, scans, images = seq_data
     cfg, _ = port_cfg
     pipe = tcl.CamLidarPipeline(cfg, device="cpu")
-    for kw, what in ((dict(coupled=True), "coupled"), (dict(mapping=True), "mapping"),
-                     (dict(ingest="uint16"), "uint16"), (dict(resume=True), "A.7"),
-                     (dict(checkpoint_path="x.npz"), "A.7"), (dict(stop_after=2), "A.7")):
+    for kw, what in ((dict(coupled=True), r"coupled.*A\.8"),
+                     (dict(mapping=True), r"mapping.*A\.8")):
         with pytest.raises(NotImplementedError, match=what):
             pipe.run_chunked(scans, images, **kw)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pipe.run(scans, images)
+    full = pipe.run_chunked(scans, images, chunk=2)
+    odo = OdometryPipeline(cfg, device="cpu").run_chunked(scans, chunk=2, quantize=True)
+    np.testing.assert_array_equal(full.lidar_positions, odo.positions)
+    path = str(tmp_path / "camlidar.npz")
+    stopped = pipe.run_chunked(scans, images, chunk=1, checkpoint_path=path, checkpoint_every=8,
+                               stop_after=1)
+    resumed = pipe.run_chunked(scans, images, chunk=1, checkpoint_path=path, resume=True)
+    for name in ("lidar_positions", "lidar_quats", "visual_positions", "visual_quats"):
+        np.testing.assert_array_equal(getattr(stopped, name), getattr(full, name)[:2])
+        np.testing.assert_array_equal(getattr(resumed, name), getattr(full, name))
+    per_frame = tcl.CamLidarPipeline(cfg, device="cpu").run(scans, images)
+    np.testing.assert_array_equal(per_frame.lidar_positions,
+                                  OdometryPipeline(cfg, device="cpu").run(scans).positions)
     with pytest.raises(ValueError, match="1:1"):
         pipe.run_chunked(scans, images[:2], ingest="polar2")
     with pytest.raises(ValueError, match="ingest"):

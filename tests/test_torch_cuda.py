@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the direct-VO chunk (which runs no kernel of the port) on the card
-against the port on the CPU.
+the direct-VO chunk (which runs no kernel of the port) on the card against
+the port on the CPU, the per-frame drivers' kernel launches, and resumed
+runs of the four ``run_chunked``s bit for bit.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that on a machine with a card and without JAX it runs with
@@ -851,3 +852,122 @@ def test_direct_vo_chunked_on_the_card_matches_the_cpu(dev, run_ba, tol):
     assert np.isfinite(gt).all() and gt.shape == (6, 3)
     np.testing.assert_allclose(gt, ct, atol=tol)
     np.testing.assert_allclose(gq, cq, atol=tol)
+
+
+def _small_system(camera=False):
+    """tests/test_torch_drivers.py's lidar configuration (1024 azimuth bins,
+    small map caps, the default local caps of the host cube map, which five
+    frames do not fill), with tests/test_torch_camlidar.py's 320 × 96 camera
+    for the camera paths."""
+    from lidar_visual_odometry_tpu_torch.utils import config as C
+
+    kw = dict(lidar=C.LidarConfig(azimuth_bins=1024), odometry=C.OdometryConfig(outer_iters=4),
+              mapping=C.MappingConfig(outer_iters=2, gn_iters=4, corner_slot=1024,
+                                      surf_slot=1024, map_corner_cap=2048, map_surf_cap=2048))
+    if camera:
+        r_sc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+        kw.update(
+            camera=C.CameraConfig(fx=120.0, fy=120.0, cx=160.0, cy=48.0, width=320, height=96),
+            visual=C.VisualConfig(depth_cloud_cap=4096, lk_window=9, lk_levels=3,
+                                  lk_reverse_levels=1, lk_iters_coarse=4, max_tracked=128,
+                                  grid_rows=4, grid_cols=6),
+            extrinsic=C.ExtrinsicConfig(
+                matrix=tuple(tuple(float(v) for v in row) + (0.0,) for row in r_sc.T)))
+    return C.SystemConfig(**kw)
+
+
+def _corridor(n=5):
+    """Five scans of the corridor at 600 azimuth steps and their 320 × 96
+    images."""
+    from lidar_visual_odometry_tpu_torch.data import synthetic
+
+    seq = synthetic.SyntheticSequence(n_frames=n, width=600, speed=1.0, yaw_rate=0.004,
+                                      noise=0.01)
+    scans = [seq.scan(k) for k in range(n)]
+    images = [synthetic.render_image(seq.scene, *synthetic.camera_from_velodyne_pose(*seq.pose(k)),
+                                     fx=120.0, fy=120.0, cx=160.0, cy=48.0, width=320,
+                                     height=96)[0] for k in range(n)]
+    return scans, images
+
+
+@pytest.mark.parametrize("driver", ["odometry", "slam_device_map", "slam_host_map", "camlidar"])
+def test_per_frame_drivers_launch_their_kernels(dev, driver):
+    """The per-frame drivers on the card: every kernel of their path
+    launches (K6 four times a tracked frame), and the positions agree with
+    the port on the CPU (the kernels' plain versions) within the CPU tests'
+    parity tolerances against the JAX package: 2e-4 m for odometry, 1e-2 m
+    mapped, 5e-3 m visual."""
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import CamLidarPipeline
+    from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
+
+    scans, images = _corridor()
+    odometry = ("segment_sum_batched", "associate_kernel", "gn_inner_loop")
+    out, counts = {}, None
+    for d in (dev, "cpu"):
+        kernels.reset_launch_counts()
+        if driver == "odometry":
+            out[str(d)] = OdometryPipeline(_small_system(), capacity=65536, device=d).run(
+                scans).positions
+            path = odometry
+        elif driver.startswith("slam"):
+            out[str(d)] = FullPipeline(_small_system(), capacity=65536,
+                                       device_map=driver == "slam_device_map",
+                                       device=d).run(scans)[1].positions
+            path = odometry + ("segment_sum", "block_topk_windowed")
+        else:
+            out[str(d)] = CamLidarPipeline(_small_system(camera=True), capacity=65536,
+                                           device=d).run(scans, images).visual_positions
+            path = odometry + ("lk_level",)
+        if counts is None:
+            counts = kernels.launch_counts()
+    assert min(counts[k] for k in path) > 0, counts
+    assert kernels.launch_counts()[path[0]] == 0    # the CPU run launches nothing
+    if driver == "camlidar":
+        assert counts["lk_level"] == 4 * (len(scans) - 1)
+    tol = {"odometry": 2e-4, "camlidar": 5e-3}.get(driver, 1e-2)
+    assert np.isfinite(out[str(dev)]).all()
+    np.testing.assert_allclose(out[str(dev)], out["cpu"], atol=tol)
+
+
+@pytest.mark.parametrize("path", ["odometry", "slam", "camlidar", "direct"])
+def test_resumed_run_is_bit_for_bit_on_the_card(dev, tmp_path, path):
+    """Each ``run_chunked`` with its default ingest, stopped after frame 2 at
+    a snapshot and resumed, equals its uninterrupted run on the card bit for
+    bit."""
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import CamLidarPipeline
+    from lidar_visual_odometry_tpu_torch.models.direct_vo import DirectVOChunked
+    from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
+    from lidar_visual_odometry_tpu_torch.ops.camera import Pinhole
+    from lidar_visual_odometry_tpu_torch.utils.config import VisualConfig
+
+    scans, images = _corridor()
+
+    def run(**kw):
+        if path == "odometry":
+            r = OdometryPipeline(_small_system(), capacity=65536, device=dev).run_chunked(
+                scans, chunk=2, **kw)
+            return r.positions, r.quaternions
+        if path == "slam":
+            o, m = FullPipeline(_small_system(), capacity=65536, device=dev).run_chunked(
+                scans, chunk=2, map_skip=1, **kw)
+            return o.positions, m.positions, m.quaternions
+        if path == "camlidar":
+            r = CamLidarPipeline(_small_system(camera=True), capacity=65536,
+                                 device=dev).run_chunked(scans, images, chunk=2, **kw)
+            return r.lidar_positions, r.visual_positions, r.visual_quats
+        c, imgs, clouds, masks = _direct_scene()
+        cam = Pinhole(c["fx"], c["fy"], c["cx"], c["cy"], c["width"], c["height"],
+                      torch.zeros(5, device=dev))
+        t, q, _ = DirectVOChunked(cam, VisualConfig(pyramid_levels=3, keyframe_window=3),
+                                  point_cap=512, device=dev).run_chunked(imgs, clouds, masks,
+                                                                         chunk=2, **kw)
+        return t, q
+
+    full = run()
+    ckpt = str(tmp_path / "run.npz")
+    stopped = run(checkpoint_path=ckpt, checkpoint_every=2, stop_after=2)
+    resumed = run(checkpoint_path=ckpt, resume=True)
+    for f, s, r in zip(full, stopped, resumed, strict=True):
+        assert np.isfinite(f).all()
+        np.testing.assert_array_equal(s, f[:3])
+        np.testing.assert_array_equal(r, f)

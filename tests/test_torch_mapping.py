@@ -543,24 +543,43 @@ def test_full_pipeline_map_skip_2(corridor):
     assert not np.allclose(mapped.positions[4], odo.positions[4], atol=1e-6)
 
 
-def test_full_pipeline_cuda_and_unported_options_raise(monkeypatch, corridor):
-    """device="cuda" (the default) raises without a card, and the parts of
-    FullPipeline outside this slice say so."""
+def test_full_pipeline_cuda_and_unported_options_raise(monkeypatch, corridor, tmp_path):
+    """device="cuda" (the default) raises without a card. The options that
+    lay outside the first slices (ROADMAP A.7; they raised until it) run and
+    match the JAX package on three frames: ``run`` on the device map and on
+    the host cube map (``device_map=False``), the default "uint16" ingest of
+    ``run_chunked``, and a checkpointed ``run_chunked``, whose every-8-frames
+    schedule writes nothing in a run this short, as the reference's."""
     _, scans = corridor
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = tcfg.SystemConfig()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        FullPipeline(cfg)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        dm.init_state(cfg.mapping)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        dm.device_map_state_from_numpy({})
-    with pytest.raises(NotImplementedError, match="A.7"):
-        FullPipeline(cfg, device_map=False, device="cpu")
-    pipe = FullPipeline(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pipe.run(scans)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pipe.run_chunked(scans, checkpoint_path="x.npz", checkpoint_every=8)
-    with pytest.raises(NotImplementedError, match="uint16"):
-        pipe.run_chunked(scans, ingest="uint16")
+    scans = scans[:3]
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        cfg = tcfg.SystemConfig()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FullPipeline(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dm.init_state(cfg.mapping)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dm.device_map_state_from_numpy({})
+    cfg_j, cfg_t = _configs()
+
+    def close(got, want):
+        # as test_full_pipeline_run_chunked_matches_jax
+        (odo_t, map_t), (odo_j, map_j) = got, want
+        assert map_t.positions.shape == (3, 3)
+        np.testing.assert_allclose(odo_t.positions, odo_j.positions, atol=2e-4)
+        np.testing.assert_allclose(map_t.positions, map_j.positions, atol=1e-2)
+        np.testing.assert_allclose(map_t.quaternions, map_j.quaternions, atol=1e-3)
+
+    for device_map in (False, True):
+        close(FullPipeline(cfg_t, capacity=65536, device_map=device_map, device="cpu").run(scans),
+              JaxFullPipeline(cfg_j, capacity=65536, device_map=device_map).run(scans))
+    pipe = FullPipeline(cfg_t, capacity=65536, device="cpu")
+    got = pipe.run_chunked(scans, chunk=2, map_skip=1)
+    close(got, JaxFullPipeline(cfg_j, capacity=65536).run_chunked(scans, chunk=2, map_skip=1))
+    path = tmp_path / "x.npz"
+    again = pipe.run_chunked(scans, chunk=2, map_skip=1, checkpoint_path=str(path),
+                             checkpoint_every=8)
+    assert not path.exists()
+    for a, b in zip(again, got):
+        np.testing.assert_array_equal(a.positions, b.positions)

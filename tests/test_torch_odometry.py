@@ -116,7 +116,7 @@ def test_run_chunked_polar2_matches_jax(seq_scans):
 def test_run_chunked_ragged_chunk_and_polar(seq_scans):
     """chunk=3 leaves a ragged last chunk (the JAX pipeline pads it with empty
     frames, the port runs it short); ingest="polar" decodes the angular
-    offsets."""
+    offsets, and the "float" ingest pads the raw points."""
     _, scans = seq_scans
     cfg_j = jcfg.SystemConfig(lidar=jcfg.LidarConfig(azimuth_bins=1024),
                               odometry=jcfg.OdometryConfig(outer_iters=4))
@@ -127,8 +127,10 @@ def test_run_chunked_ragged_chunk_and_polar(seq_scans):
     # as in test_run_chunked_polar2_matches_jax
     np.testing.assert_allclose(got.positions, want.positions, atol=2e-4)
     np.testing.assert_allclose(got.quaternions, want.quaternions, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        OdometryPipeline(cfg_t, device="cpu").run_chunked(scans, ingest="float")
+    want = JaxPipeline(cfg_j).run_chunked(scans, chunk=3, ingest="float")
+    got = OdometryPipeline(cfg_t, device="cpu").run_chunked(scans, chunk=3, ingest="float")
+    np.testing.assert_allclose(got.positions, want.positions, atol=2e-4)
+    np.testing.assert_allclose(got.quaternions, want.quaternions, atol=1e-5)
 
 
 def test_port_imports_no_jax():

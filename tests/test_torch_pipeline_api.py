@@ -1,9 +1,12 @@
 """The port's pipeline entry points against the JAX package's: the four
 ``run_chunked`` signatures (names, order, defaults), the reference's default
-ingests and checkpoint arguments raising ``NotImplementedError`` until they
-are ported, and the pyramidal tracker routing its levels as the TPU does
-(kernel K6 only for slot counts that are a multiple of 8)."""
+ingests (``"float"`` for ``OdometryPipeline``, ``"uint16"`` for the others)
+and checkpoint arguments, which run and match the JAX package's (the tests
+named ``*_raise_naming_a7`` pinned them to ``NotImplementedError`` until
+ROADMAP A.7 ported them), and the pyramidal tracker routing its levels as the
+TPU does (kernel K6 only for slot counts that are a multiple of 8)."""
 
+import contextlib
 import inspect
 
 import jax.numpy as jnp
@@ -17,13 +20,15 @@ from lidar_visual_odometry_tpu.models import direct_vo as jdv
 from lidar_visual_odometry_tpu.models import pipeline as jpipe
 from lidar_visual_odometry_tpu.ops import image as jimg
 from lidar_visual_odometry_tpu.ops import lk as jlk
+from lidar_visual_odometry_tpu.utils import config as jcfg
 from lidar_visual_odometry_tpu_torch.kernels import lk as klk
 from lidar_visual_odometry_tpu_torch.models import cam_lidar_pipeline as tcl
 from lidar_visual_odometry_tpu_torch.models import direct_vo as tdv
 from lidar_visual_odometry_tpu_torch.models import pipeline as tpipe
-from lidar_visual_odometry_tpu_torch.ops import camera as tcam
 from lidar_visual_odometry_tpu_torch.ops import lk as tlk
 from lidar_visual_odometry_tpu_torch.utils import config as tcfg
+from test_torch_direct import CAP as DIRECT_CAP, frames, jax_cam, port_cam  # noqa: F401
+from test_torch_visual import lk_through_pallas_interpret
 
 torch.set_num_threads(2)
 
@@ -33,6 +38,8 @@ PAIRS = {
     "camlidar": (tcl.CamLidarPipeline, jcl.CamLidarPipeline),
 }
 CAM = dict(fx=120.0, fy=120.0, cx=160.0, cy=48.0, width=320, height=96)
+CAM_INTRINSICS = {k: CAM[k] for k in ("fx", "fy", "cx", "cy", "width", "height")}
+CAPACITY = 65536
 
 
 def _params(cls):
@@ -41,19 +48,61 @@ def _params(cls):
 
 
 @pytest.fixture(scope="module")
-def scans():
-    seq = jsyn.SyntheticSequence(n_frames=3, width=600, noise=0.005)
+def seq():
+    return jsyn.SyntheticSequence(n_frames=3, width=600, noise=0.005)
+
+
+@pytest.fixture(scope="module")
+def scans(seq):
     return [seq.scan(k) for k in range(3)]
+
+
+@pytest.fixture(scope="module")
+def images(seq):
+    return [jsyn.render_image(seq.scene, *jsyn.camera_from_velodyne_pose(*seq.pose(k)),
+                              **CAM)[0] for k in range(3)]
 
 
 def _pipe(name):
     return PAIRS[name][0](tcfg.SystemConfig(), device="cpu")
 
 
-def _run(name, pipe, scans, *args, **kw):
+def _run(name, pipe, scans, *args, images=None, **kw):
     if name == "camlidar":
-        return pipe.run_chunked(scans, [np.zeros((96, 320), np.uint8)] * len(scans), *args, **kw)
+        if images is None:
+            images = [np.zeros((96, 320), np.uint8)] * len(scans)
+        return pipe.run_chunked(scans, images, *args, **kw)
     return pipe.run_chunked(scans, *args, **kw)
+
+
+def _small(m, name):
+    """A configuration small enough for the CPU: 1024 azimuth bins, two
+    re-association rounds, the mapping caps of tests/test_torch_mapping.py
+    and a 320 × 96 camera with a 128-slot feature table."""
+    kw = dict(lidar=m.LidarConfig(azimuth_bins=1024), odometry=m.OdometryConfig(outer_iters=2))
+    if name == "slam":
+        kw["mapping"] = m.MappingConfig(outer_iters=2, gn_iters=4, corner_slot=1024,
+                                        surf_slot=1024, map_corner_cap=2048, map_surf_cap=2048)
+    if name == "camlidar":
+        kw["camera"] = m.CameraConfig(**CAM_INTRINSICS)
+        kw["visual"] = m.VisualConfig(depth_cloud_cap=4096, lk_window=9, lk_levels=3,
+                                      max_tracked=128, grid_rows=4, grid_cols=6)
+    return m.SystemConfig(**kw)
+
+
+def _arrays(name, res):
+    """A ``run_chunked`` result as its arrays, with each one's tolerance
+    against the JAX package (tests/test_torch_odometry.py's chunked
+    pipeline, tests/test_torch_mapping.py's fused SLAM and
+    tests/test_torch_camlidar.py's pipeline)."""
+    if name == "odometry":
+        return [(res.positions, 2e-4), (res.quaternions, 1e-5)]
+    if name == "slam":
+        odo, mapped = res
+        return [(odo.positions, 2e-4), (odo.quaternions, 1e-5), (mapped.positions, 1e-2),
+                (mapped.quaternions, 1e-3)]
+    return [(res.lidar_positions, 1e-3), (res.lidar_quats, 1e-3), (res.visual_positions, 5e-3),
+            (res.visual_quats, 1e-3)]
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
@@ -63,14 +112,31 @@ def test_run_chunked_signature_is_the_references(name):
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
-def test_run_chunked_default_ingest_raises_naming_a7(name, scans):
-    pipe = _pipe(name)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        _run(name, pipe, scans)
-    for kw in (dict(checkpoint_path="x.npz", checkpoint_every=8), dict(resume=True),
-               dict(stop_after=1)):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            _run(name, pipe, scans, ingest="polar2", **kw)
+def test_run_chunked_default_ingest_raises_naming_a7(name, scans, images, tmp_path):
+    """The default ingest runs and matches the JAX package's, and the
+    checkpoint arguments run: one frame a chunk, stopped after frame 1 with
+    a snapshot, then resumed, equals the default run bit for bit (the port
+    runs a chunk frame by frame, so the chunk size changes no bits)."""
+    port_cls, jax_cls = PAIRS[name]
+    routing = lk_through_pallas_interpret() if name == "camlidar" else contextlib.nullcontext()
+    with routing:
+        want = _run(name, jax_cls(_small(jcfg, name), capacity=CAPACITY), scans, images=images)
+
+    def port_run(**kw):
+        return _run(name, port_cls(_small(tcfg, name), capacity=CAPACITY, device="cpu"), scans,
+                    images=images, **kw)
+
+    got = port_run()
+    for (g, tol), (w, _) in zip(_arrays(name, got), _arrays(name, want), strict=True):
+        assert g.shape == w.shape == (3, g.shape[1])
+        np.testing.assert_allclose(g, w, atol=tol)
+    path = str(tmp_path / "run.npz")
+    stopped = port_run(chunk=1, checkpoint_path=path, checkpoint_every=8, stop_after=1)
+    resumed = port_run(chunk=1, checkpoint_path=path, resume=True)
+    for (g, _), (st, _), (r, _) in zip(_arrays(name, got), _arrays(name, stopped),
+                                       _arrays(name, resumed)):
+        np.testing.assert_array_equal(st, g[:2])
+        np.testing.assert_array_equal(r, g)
 
 
 def test_direct_run_chunked_signature_is_the_references():
@@ -83,13 +149,38 @@ def test_direct_run_chunked_signature_is_the_references():
 @pytest.mark.parametrize("kw", [dict(checkpoint_path="x.npz", checkpoint_every=8),
                                 dict(checkpoint_path="x.npz"), dict(resume=True),
                                 dict(stop_after=1)])
-def test_direct_checkpoint_arguments_raise_naming_a7(kw):
-    cam = tcam.Pinhole(120.0, 120.0, 160.0, 48.0, 320, 96, torch.zeros(5))
-    vo = tdv.DirectVOChunked(cam, tcfg.VisualConfig(), device="cpu")
-    n = 2
-    with pytest.raises(NotImplementedError, match="A.7"):
-        vo.run_chunked([np.zeros((96, 320), np.uint8)] * n, [np.zeros((16, 3), np.float32)] * n,
-                       [np.zeros(16, bool)] * n, **kw)
+def test_direct_checkpoint_arguments_raise_naming_a7(kw, tmp_path, frames):
+    """The checkpoint arguments of ``DirectVOChunked.run_chunked`` act as the
+    reference's on six frames in chunks of two: every 8 frames and never
+    (``checkpoint_every=0``) write no snapshot in a run this short,
+    ``resume`` continues from a snapshot the JAX package wrote after frame 2,
+    and ``stop_after=1`` stops at the first boundary past it (frame 2 done).
+    Positions and quaternions within 5e-4 of the JAX package's (BA off, as
+    tests/test_torch_direct.py's chunk)."""
+    jcf = jcfg.VisualConfig(pyramid_levels=3, keyframe_window=3)
+    tcf = tcfg.VisualConfig(pyramid_levels=3, keyframe_window=3)
+    args = ([f[0] for f in frames], [f[1] for f in frames], [f[2] for f in frames])
+    jvo = jdv.DirectVOChunked(jax_cam(), jcf, point_cap=DIRECT_CAP, run_window_ba=False)
+    tvo = tdv.DirectVOChunked(port_cam(), tcf, point_cap=DIRECT_CAP, run_window_ba=False,
+                              device="cpu")
+    kws = {}
+    for side in ("jax", "port"):
+        kws[side] = dict(kw)
+        if "checkpoint_path" in kw:
+            kws[side]["checkpoint_path"] = str(tmp_path / f"{side}.npz")
+    if kw.get("resume"):
+        start = str(tmp_path / "start.npz")
+        jvo.run_chunked(*args, chunk=2, checkpoint_path=start, checkpoint_every=2, stop_after=2)
+        for side in kws:
+            kws[side]["checkpoint_path"] = start
+    want_t, want_q, _ = jvo.run_chunked(*args, chunk=2, **kws["jax"])
+    got_t, got_q, wall = tvo.run_chunked(*args, chunk=2, **kws["port"])
+    n = 3 if kw.get("stop_after") else 6
+    assert got_t.shape == want_t.shape == (n, 3) and got_q.shape == (n, 4) and wall > 0
+    np.testing.assert_allclose(got_t, want_t, atol=5e-4)
+    np.testing.assert_allclose(got_q, want_q, atol=5e-4)
+    if "checkpoint_path" in kw:
+        assert not (tmp_path / "jax.npz").exists() and not (tmp_path / "port.npz").exists()
 
 
 @pytest.mark.parametrize("kw, ingest", [({}, "float"), (dict(quantize=True), "uint16"),
@@ -97,9 +188,20 @@ def test_direct_checkpoint_arguments_raise_naming_a7(kw):
                                         (dict(ingest="uint16", quantize=True), "uint16")])
 def test_odometry_unported_ingests_raise_naming_a7(scans, kw, ingest):
     """``ingest=None`` means "uint16" with ``quantize`` and "float" without, as
-    in the reference; both are A.7's."""
-    with pytest.raises(NotImplementedError, match=rf"ingest='{ingest}'.*A\.7"):
-        _pipe("odometry").run_chunked(scans, **kw)
+    in the reference, and an explicit ``ingest`` wins over ``quantize``: each
+    call equals the port's call with the ingest named bit for bit, and the
+    JAX package's same call within tests/test_torch_odometry.py's 2e-4 m and
+    1e-5."""
+    got = tpipe.OdometryPipeline(_small(tcfg, "odometry"), capacity=CAPACITY,
+                                 device="cpu").run_chunked(scans, **kw)
+    named = tpipe.OdometryPipeline(_small(tcfg, "odometry"), capacity=CAPACITY,
+                                   device="cpu").run_chunked(scans, ingest=ingest)
+    want = jpipe.OdometryPipeline(_small(jcfg, "odometry"), capacity=CAPACITY).run_chunked(
+        scans, **kw)
+    np.testing.assert_array_equal(got.positions, named.positions)
+    np.testing.assert_array_equal(got.quaternions, named.quaternions)
+    np.testing.assert_allclose(got.positions, want.positions, atol=2e-4)
+    np.testing.assert_allclose(got.quaternions, want.quaternions, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))

@@ -6,9 +6,10 @@ HDL-64 sequence (``bench.py`` lidar mode: ``SystemConfig()`` lidar/odometry
 defaults, ``run_chunked(scans, chunk=8, ingest="polar2")``).
 
 Runs the JAX package on the CPU (its XLA branches; no Pallas kernel runs
-there). Takes a few minutes and a few GiB of host memory. Writes the ATE and
-the estimated positions to ``tools/jax_reference_corridor.json``, which
-``chip_smoke.py`` reads, and prints them.
+there). Takes a few minutes and a few GiB of host memory. Writes the ATE,
+the estimated positions and a sha256 of the scans (``inputs_sha256``) to
+``tools/jax_reference_corridor.json``, which ``chip_smoke.py`` reads, and
+prints them.
 
     python tools/jax_reference_ate.py [--frames 49] [--out PATH]
 """
@@ -21,6 +22,12 @@ import os
 import sys
 import time
 
+# numpy's OpenBLAS has corrupted renders made while other threads called it;
+# one BLAS thread keeps every render deterministic (ROADMAP C.5). Set before
+# numpy is first imported.
+os.environ["OPENBLAS_NUM_THREADS"] = "1"
+os.environ["OMP_NUM_THREADS"] = "1"
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
@@ -29,6 +36,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
+from jax_reference_camlidar import inputs_sha256  # noqa: E402
 from lidar_visual_odometry_tpu.data import synthetic  # noqa: E402
 from lidar_visual_odometry_tpu.eval import metrics  # noqa: E402
 from lidar_visual_odometry_tpu.models.pipeline import OdometryPipeline  # noqa: E402
@@ -58,6 +66,7 @@ def main() -> None:
     out = json.dumps({
         "backend": jax.default_backend(),
         "frames": args.frames,
+        "inputs_sha256": inputs_sha256(*scans),
         "ate_m": metrics.ate_rmse(res.positions, gt),
         "render_s": render_s,
         "run_s": run_s,

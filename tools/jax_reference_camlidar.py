@@ -19,9 +19,11 @@ wrapped to run in interpret mode. JAX's caches are cleared around the run so
 that no program traced without the patch is reused. A second run without the
 patch records the XLA path's ``ate_visual`` for information.
 
-Takes several minutes (four interpret-mode LK calls a frame). Writes
-``tools/jax_reference_camlidar.json``, which ``chip_smoke.py`` reads, and
-prints it.
+Scans and images are rendered in threads with numpy's BLAS held to one
+thread (several BLAS threads under several Python threads have corrupted
+renders). Takes several minutes (four interpret-mode LK calls a frame).
+Writes ``tools/jax_reference_camlidar.json`` (with a sha256 of the scans,
+then the images), which ``chip_smoke.py`` reads, and prints it.
 
     python tools/jax_reference_camlidar.py [--frames 49] [--out PATH] [--no-xla]
 """
@@ -29,6 +31,7 @@ prints it.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -36,6 +39,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from functools import partial
+
+# numpy's OpenBLAS has corrupted renders made while other threads called it;
+# one BLAS thread keeps the threaded render deterministic (ROADMAP C.5). Set
+# before numpy is first imported.
+os.environ["OPENBLAS_NUM_THREADS"] = "1"
+os.environ["OMP_NUM_THREADS"] = "1"
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -100,6 +109,14 @@ def lk_through_pallas_interpret():
         jax.clear_caches()
 
 
+def inputs_sha256(*arrays) -> str:
+    """sha256 over the arrays' bytes in order: the scans, then the images."""
+    digest = hashlib.sha256()
+    for arr in arrays:
+        digest.update(np.ascontiguousarray(arr).tobytes())
+    return digest.hexdigest()
+
+
 def render(seq, k):
     Rc, tc = synthetic.camera_from_velodyne_pose(*seq.pose(k))
     return synthetic.render_image(seq.scene, Rc, tc, **CAM)[0]
@@ -138,6 +155,7 @@ def main() -> None:
         "backend": jax.default_backend(),
         "lk": "pallas_lk.lk_level, interpret mode",
         "frames": n,
+        "inputs_sha256": inputs_sha256(*scans, *images),
         "ate_visual_m": ate_visual(seq, res.visual_positions, n),
         "render_s": render_s,
         "run_s": run_s,

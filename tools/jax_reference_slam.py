@@ -10,7 +10,8 @@ Runs the JAX package on the CPU, where it takes its XLA branches: the dense
 chunked ``knn.knn`` for the scan-to-map 5-NN (``lidar_mapping.py:133``), not
 the cell-windowed kernel. Within the 1 m association gates both find the same
 neighbours. Takes minutes and a few GiB of host memory. Writes the mapped and
-odometry ATE and the mapped positions to ``tools/jax_reference_slam.json``,
+odometry ATE, the mapped positions and a sha256 of the scans
+(``inputs_sha256``) to ``tools/jax_reference_slam.json``,
 which ``chip_smoke.py`` reads, and prints them.
 
     python tools/jax_reference_slam.py [--frames 49] [--out PATH]
@@ -24,6 +25,12 @@ import os
 import sys
 import time
 
+# numpy's OpenBLAS has corrupted renders made while other threads called it;
+# one BLAS thread keeps every render deterministic (ROADMAP C.5). Set before
+# numpy is first imported.
+os.environ["OPENBLAS_NUM_THREADS"] = "1"
+os.environ["OMP_NUM_THREADS"] = "1"
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
@@ -32,6 +39,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
+from jax_reference_camlidar import inputs_sha256  # noqa: E402
 from lidar_visual_odometry_tpu.data import synthetic  # noqa: E402
 from lidar_visual_odometry_tpu.eval import metrics  # noqa: E402
 from lidar_visual_odometry_tpu.models.pipeline import FullPipeline  # noqa: E402
@@ -61,6 +69,7 @@ def main() -> None:
     out = json.dumps({
         "backend": jax.default_backend(),
         "frames": args.frames,
+        "inputs_sha256": inputs_sha256(*scans),
         "mapped_ate_m": metrics.ate_rmse(mapped.positions, gt),
         "odometry_ate_m": metrics.ate_rmse(odom.positions, gt),
         "render_s": render_s,

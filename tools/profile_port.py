@@ -28,11 +28,21 @@ pipeline up and measures:
   ``CamLidarPipeline._cam_cloud``) split into upload, decode and pyramid,
   tracking, point selection, the keyframe decision and the window shift with
   its BA, with the tracker's iterations and the BA's rounds per frame.
+  ``drivers`` traces the per-frame drivers and the default ingests, each
+  after a warm run: ``OdometryPipeline.run_chunked`` with the ``"float"``
+  and the ``"uint16"`` ingest, ``OdometryPipeline.run``,
+  ``FullPipeline.run_chunked`` (``"uint16"``), ``FullPipeline.run`` with the
+  device map and with the host cube map, and ``CamLidarPipeline.run_chunked``
+  (``"uint16"``) and ``.run``.
+
+Scans and images are rendered in threads with numpy's BLAS held to one
+thread (several BLAS threads under several Python threads have corrupted
+renders).
 
 Writes ``<out>/profile_port.json`` and prints a summary. Needs a CUDA device.
 
     python tools/profile_port.py [--frames 17]
-        [--paths odometry,slam,slam_dense,camlidar,knn,direct] [--out DIR]
+        [--paths odometry,slam,slam_dense,camlidar,knn,direct,drivers] [--out DIR]
 """
 
 from __future__ import annotations
@@ -44,6 +54,11 @@ import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+# one BLAS thread: numpy's OpenBLAS has corrupted renders made while other
+# threads called it. Set before numpy is first imported.
+os.environ["OPENBLAS_NUM_THREADS"] = "1"
+os.environ["OMP_NUM_THREADS"] = "1"
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -143,7 +158,7 @@ def _trace(run, frames):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=17)
-    ap.add_argument("--paths", default="odometry,slam,slam_dense,camlidar,knn,direct")
+    ap.add_argument("--paths", default="odometry,slam,slam_dense,camlidar,knn,direct,drivers")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     paths = args.paths.split(",")
@@ -183,7 +198,7 @@ def main() -> int:
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
         scans = list(ex.map(seq.scan, range(args.frames)))
         images = (list(ex.map(render_image, range(args.frames)))
-                  if {"camlidar", "direct"} & set(paths) else [])
+                  if {"camlidar", "direct", "drivers"} & set(paths) else [])
     n = len(scans) - 1
     geom = dict(n_scans=lcfg.n_scans, width=lcfg.azimuth_bins,
                 min_range=lcfg.min_range, max_range=lcfg.max_range)
@@ -433,11 +448,48 @@ def main() -> int:
         r["peak_device_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
         result["direct"] = r
 
+    if "drivers" in paths:
+        ccfg = camlidar_config()
+        runs = {
+            "odometry_float": lambda: OdometryPipeline(cfg, device=dev).run_chunked(
+                scans, chunk=8).positions,
+            "odometry_uint16": lambda: OdometryPipeline(cfg, device=dev).run_chunked(
+                scans, chunk=8, quantize=True).positions,
+            "odometry_per_frame": lambda: OdometryPipeline(cfg, device=dev).run(
+                scans).positions,
+            "slam_uint16": lambda: FullPipeline(cfg, device=dev).run_chunked(
+                scans, chunk=8, map_skip=1)[1].positions,
+            "slam_per_frame_device_map": lambda: FullPipeline(cfg, device=dev).run(
+                scans)[1].positions,
+            "slam_per_frame_host_map": lambda: FullPipeline(
+                cfg, device_map=False, device=dev).run(scans)[1].positions,
+            "camlidar_uint16": lambda: cl.CamLidarPipeline(ccfg, device=dev).run_chunked(
+                scans, images, chunk=8).visual_positions,
+            "camlidar_per_frame": lambda: cl.CamLidarPipeline(ccfg, device=dev).run(
+                scans, images).visual_positions,
+        }
+        result["drivers"] = {}
+        for name, run in runs.items():
+            run()   # warm
+            # the per-frame drivers also compute frame 0
+            frames = n + 1 if name.endswith(("per_frame", "device_map", "host_map")) else n
+            r = _trace(run, frames)
+            r["top_ops_by_device_time"] = r["top_ops_by_device_time"][:10]
+            result["drivers"][name] = r
+
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_port.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(smi)
     for path in paths:
+        if path == "drivers":
+            for name, r in result[path].items():
+                print(f"drivers {name}: " + ", ".join(
+                    f"{k} {r[k]:.4f}" for k in ("profiled_wall_ms_per_frame",
+                                                 "device_busy_ms_per_frame",
+                                                 "device_idle_share",
+                                                 "device_events_per_frame")))
+            continue
         r = result[path]
         print(path, json.dumps({k: v for k, v in r.items()
                                 if k not in ("top_ops_by_device_time", "mapped_positions")}))

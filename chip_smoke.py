@@ -89,6 +89,28 @@ Phase 6  drives direct photometric VO at full width, the bench's fourth mode:
          iterates, up to 0.17 m away at frames 18-19). No kernel of the port
          lies on this path (the JAX package runs no Pallas kernel there
          either).
+Phase 7  runs the per-frame drivers, the default ingests and checkpoint /
+         resume at full width against ``tools/jax_reference_drivers.json``.
+Phase 8  runs the cam-lidar coupled and mapping modes and the IMU-fused
+         odometry at full width against ``tools/jax_reference_modes.json``
+         (from ``tools/jax_reference_modes.py``; the JAX runs' inputs, IMU
+         stream included, must hash alike): 8a
+         ``CamLidarPipeline(cfg).run_chunked(scans[:17], images[:17], chunk=8,
+         ingest="polar2", coupled=True)``, its lidar ATE and ``ate_visual``
+         each within 0.01 m of the JAX run's, K1-K3 and K6 launched, K6 four
+         times a tracked frame; 8b ``mapping=True``, its mapped ATE within
+         0.01 m of the JAX run's, its lidar and visual positions phase 4's
+         and its mapped positions phase 3's, bit for bit (the same
+         operations); 8c both, its mapped ATE gated alike, its lidar and
+         visual positions 8a's bit for bit (mapping does not feed back); 8d
+         8c stopped after frame 8 and resumed from its checkpoint, 8c's bit
+         for bit; 8e ``ImuFusedOdometry(SystemConfig()).process`` frame by
+         frame with the bundles of ``synthesize_imu(seq, frame_period=0.1,
+         rate_hz=100.0)`` over the first 17 frames, its fused ATE within
+         0.01 m of the JAX run's over the same frames, its positions within
+         1e-3 m of the JAX run's and nearer to them than the same run's
+         odometry alone, K1-K3 launched, the window solve's and the
+         odometry's ms a frame printed.
 
 Prints one JSON line with all ten kernels' numbers, K7's two output forms in
 two rows (launches counted on the
@@ -142,10 +164,25 @@ DIRECT_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # and images, run on the CPU by tools/jax_reference_drivers.py: phase 7's gates.
 DRIVERS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "tools", "jax_reference_drivers.json")
+# The JAX package's coupled and mapping cam-lidar modes and its IMU-fused
+# odometry on the same sequence, images and IMU stream, run on the CPU by
+# tools/jax_reference_modes.py: phase 8's gates.
+MODES_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tools", "jax_reference_modes.json")
 ATE_MARGIN = 0.01
 SHORT_FRAMES = 17     # phase 7: the per-frame SLAM and the camera runs
 CHECKPOINT_EVERY, STOP_AFTER = 8, 24   # phase 7f
+MODES_STOP_AFTER = 8    # phase 8d
+# phase 8e: the reference's first 17 frames (its fusion is causal). Over all
+# 49 the window solves took 33 s on an H100 (0.72 s a solve), above the 15 s
+# the phase may take.
+IMU_FRAMES = 17
 HOST_LOOP_TOL_M = 5e-3   # phase 6: positions against the JAX per-frame host loop
+# phase 8e: fused positions against the JAX fuser's (3.5e-4 m measured on an
+# H100). The ATE margin alone cannot tell fusion from none, nor can this
+# limit alone: the fuser's own odometry lies 6.8e-4 m from the JAX fuser's
+# positions on an H100, so the fused ones must also lie nearer than it.
+IMU_TOL_M = 1e-3
 DENSE_FRAMES = 17     # phase 3b
 DENSE_TOL_M = 1e-4
 MAP_FRAMES = 9        # phase 1: frames merged into the k-NN kernels' world map
@@ -1215,6 +1252,186 @@ def phase7_drivers(scans, images, gt, gt_rel, digest, phase2, phase3, dev):
           f"checkpoints {left} removed with their directory", flush=True)
 
 
+def phase8_modes(scans, images, seq, gt, gt_rel, phase3_mapped, phase4, dev):
+    """The cam-lidar coupled and mapping modes and the IMU-fused odometry at
+    full width (8a-8e). Raises on a failed gate; prints a line a sub-phase."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch import kernels
+    from lidar_visual_odometry_tpu_torch.data import sync, synthetic
+    from lidar_visual_odometry_tpu_torch.eval import metrics
+    from lidar_visual_odometry_tpu_torch.models import imu_fusion
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import CamLidarPipeline
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    with open(MODES_REFERENCE) as f:
+        ref = json.load(f)
+    stamps, accel, gyro = synthetic.synthesize_imu(seq, frame_period=0.1, rate_hz=100.0)
+    _check_inputs("8", ref, _sha256((*scans, *images, stamps, accel, gyro)))
+    m = ref["short_frames"]
+    cl_cfg = camlidar_config()
+    odometry_path = ("segment_sum_batched", "associate_kernel", "gn_inner_loop")
+    mapping_path = ("segment_sum", "block_topk_windowed")
+
+    def run(fn):
+        """fn() with the launch counts set to 0 just before; returns (its
+        result, the counts, seconds)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in kernels.launch_counts().items() if v}, \
+            time.perf_counter() - t0
+
+    def gate(sub, what, positions, want_ate, want_positions, truth, align=True):
+        """The ATE against the JAX run's + ATE_MARGIN; returns the line's text."""
+        if positions.shape != truth.shape or not np.isfinite(positions).all():
+            raise AssertionError(f"phase {sub}: bad {what} trajectory of shape {positions.shape}")
+        ate = metrics.ate_rmse(positions, truth, align=align)
+        diff = float(np.abs(positions - np.asarray(want_positions)).max())
+        if not ate <= want_ate + ATE_MARGIN:
+            raise AssertionError(f"phase {sub}: {what} ATE {ate} m exceeds the JAX reference "
+                                 f"{want_ate} + {ATE_MARGIN}")
+        return (f"{what} ATE {ate:.5f} m (JAX CPU {want_ate:.5f} m + {ATE_MARGIN}), largest "
+                f"position difference from the JAX run {diff:.5f} m")
+
+    def launched(sub, counts, names):
+        if min(counts.get(k, 0) for k in names) == 0:
+            raise AssertionError(f"phase {sub}: a kernel of the path was never launched: {counts}")
+
+    def same(sub, what, a, b):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"phase {sub}: {what} differ, by up to "
+                                 f"{float(np.abs(a - b).max())} m")
+
+    def camlidar(**kw):
+        pipe = CamLidarPipeline(cl_cfg, device=dev)
+        res = pipe.run_chunked(scans[:m], images[:m], chunk=8, ingest="polar2", **kw)
+        return res, pipe.last_wall
+
+    def lines(sub, name, res):
+        text = [gate(sub, "lidar", res.lidar_positions, ref[f"{name}_lidar_ate_m"],
+                     ref[f"{name}_lidar_positions"], gt[:m]),
+                gate(sub, "visual", res.visual_positions, ref[f"{name}_ate_visual_m"],
+                     ref[f"{name}_visual_positions"], gt_rel[:m], align=False)]
+        if res.mapped_positions is not None:
+            text.append(gate(sub, "mapped", res.mapped_positions, ref[f"{name}_mapped_ate_m"],
+                             ref[f"{name}_mapped_positions"], gt[:m]))
+        return "; ".join(text)
+
+    # 8a: the visual pose warm-starts the lidar odometry
+    (coupled, wall), counts, _ = run(lambda: camlidar(coupled=True))
+    launched("8a", counts, odometry_path + ("lk_level",))
+    if counts["lk_level"] != 4 * (m - 1):
+        raise AssertionError(f"phase 8a: expected 4 lk_level launches a tracked frame: "
+                             f"{counts['lk_level']} over {m - 1} frames")
+    spread = ref.get("coupled_eager_against_jitted_largest_lidar_position_difference_m")
+    print(f"phase 8a: coupled, {m} frames: {lines('8a', 'coupled', coupled)}; "
+          f"{(m - 1) / wall:.2f} frames/s, launches {counts}; the JAX run's own rounding "
+          f"spread (eager against jitted, lidar positions): {spread} m", flush=True)
+
+    # 8b: the scan-to-map refinement behind the uncoupled pair
+    (mapping, wall), counts, _ = run(lambda: camlidar(mapping=True))
+    launched("8b", counts, odometry_path + mapping_path + ("lk_level",))
+    for what, a, b in (("lidar positions and phase 4's", mapping.lidar_positions,
+                        phase4.lidar_positions[:m]),
+                       ("visual positions and phase 4's", mapping.visual_positions,
+                        phase4.visual_positions[:m]),
+                       ("mapped positions and phase 3's", mapping.mapped_positions,
+                        phase3_mapped.positions[:m])):
+        same("8b", what, a, b)
+    print(f"phase 8b: mapping, {m} frames: {lines('8b', 'mapping', mapping)}; lidar and visual "
+          f"positions equal phase 4's and mapped positions phase 3's bit for bit, "
+          f"{(m - 1) / wall:.2f} frames/s, launches {counts}", flush=True)
+
+    # 8c: coupled and mapping; the mapping does not feed back into odometry
+    (both, wall), counts, _ = run(lambda: camlidar(coupled=True, mapping=True))
+    launched("8c", counts, odometry_path + mapping_path + ("lk_level",))
+    same("8c", "lidar positions and 8a's", both.lidar_positions, coupled.lidar_positions)
+    same("8c", "visual positions and 8a's", both.visual_positions, coupled.visual_positions)
+    print(f"phase 8c: coupled + mapping, {m} frames: {lines('8c', 'coupled_mapping', both)}; "
+          f"lidar and visual positions equal 8a's bit for bit, {(m - 1) / wall:.2f} frames/s, "
+          f"launches {counts}", flush=True)
+
+    # 8d: 8c stopped after frame MODES_STOP_AFTER and resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "camlidar_mapping.npz")
+        kw = dict(coupled=True, mapping=True, checkpoint_path=path)
+
+        def stop_and_resume():
+            cut, _ = camlidar(checkpoint_every=MODES_STOP_AFTER, stop_after=MODES_STOP_AFTER,
+                              **kw)
+            keys = sorted(k for k in np.load(path).files if k.startswith(("mapst", "traj_m")))
+            return cut, keys, camlidar(resume=True, **kw)[0]
+
+        (cut, keys, joined), counts, wall = run(stop_and_resume)
+    n_cut = len(cut.lidar_positions)
+    for name in ("lidar_positions", "visual_positions", "mapped_positions", "lidar_quats",
+                 "visual_quats", "mapped_quats"):
+        same("8d", f"the stopped run's {name} and 8c's", getattr(cut, name),
+             getattr(both, name)[:n_cut])
+        same("8d", f"the resumed run's {name} and 8c's", getattr(joined, name),
+             getattr(both, name))
+    print(f"phase 8d: coupled + mapping stopped after frame {n_cut - 1} and resumed from a "
+          f"checkpoint with {keys}: {lines('8d', 'coupled_mapping', joined)}; every trajectory "
+          f"equals 8c's bit for bit, {(m - 1) / wall:.2f} frames/s over both calls, launches "
+          f"{counts}", flush=True)
+
+    # 8e: the IMU-fused odometry, frame by frame, its window solve timed apart
+    n = IMU_FRAMES
+    dts = np.full(stamps.shape, 0.01, np.float32)
+    bundles = sync.bundle_imu(np.arange(n) * 0.1, stamps)
+    solve_s = []
+    solve = imu_fusion.solve_window
+
+    def timed_solve(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(*args, **kwargs)
+        torch.cuda.synchronize()
+        solve_s.append(time.perf_counter() - t0)
+        return out
+
+    def fuse():
+        fuser = imu_fusion.ImuFusedOdometry(SystemConfig(), device=dev)
+        fused = np.stack([fuser.process(scans[k], accel[i], gyro[i], dts[i]).t.cpu().numpy()
+                          for k, i in enumerate(bundles)])
+        # the same run's odometry alone, as the window solves saw it
+        return fused, torch.stack([p.t for p in fuser._poses]).cpu().numpy()
+
+    imu_fusion.solve_window = timed_solve
+    try:
+        (fused, odometry), counts, wall = run(fuse)
+    finally:
+        imu_fusion.solve_window = solve
+    launched("8e", counts, odometry_path)
+    want = np.asarray(ref["imu_fused_positions"])[:n]
+    want_ate = (ref["imu_fused_ate_m"] if n == ref["frames"]
+                else metrics.ate_rmse(want, gt[:n]))
+    text = gate("8e", "fused", fused, want_ate, want, gt[:n])
+    diff = float(np.abs(fused - want).max())
+    diff_odometry = float(np.abs(odometry - want).max())
+    if not diff <= IMU_TOL_M:
+        raise AssertionError(f"phase 8e: fused positions lie {diff} m from the JAX fuser's "
+                             f"(limit {IMU_TOL_M})")
+    # a window solve that returned its start or took a zero step would leave
+    # the fused trajectory on the odometry's
+    if not diff < diff_odometry:
+        raise AssertionError(f"phase 8e: the window solves did not bring the trajectory nearer "
+                             f"to the JAX fuser's: fused {diff} m, odometry alone "
+                             f"{diff_odometry} m")
+    print(f"phase 8e: IMU-fused odometry, {n} frames: {text} (limit {IMU_TOL_M}; the same "
+          f"run's odometry alone lies {diff_odometry:.5f} m from it); {n / wall:.2f} frames/s, "
+          f"{1e3 * sum(solve_s) / n:.1f} ms/frame in {len(solve_s)} window solves "
+          f"({1e3 * sum(solve_s) / max(len(solve_s), 1):.1f} ms a solve: the first "
+          f"{1e3 * solve_s[0]:.1f} ms, the others {1e3 * np.mean(solve_s[1:]):.1f} ms each), "
+          f"{1e3 * (wall - sum(solve_s)) / n:.1f} ms/frame for the rest (odometry, "
+          f"preintegration), launches {counts} "
+          f"({ {k: round(v / n, 2) for k, v in counts.items()} } a frame)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1457,6 +1674,12 @@ def main() -> int:
     # ---- phase 7: the per-frame drivers, the default ingests, resume ----
     phase7_drivers(scans, images, gt, gt_rel, scans_images_sha, res, (odo, mapped), dev)
     print(f"phases 0-7 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 8: the coupled and mapping cam-lidar modes, IMU fusion ----
+    t0 = time.perf_counter()
+    phase8_modes(scans, images, seq, gt, gt_rel, mapped, cl, dev)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s; phases 0-8 took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     for r in results:
         r["launches"] = launches[r["name"]]

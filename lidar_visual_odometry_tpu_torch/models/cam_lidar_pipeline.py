@@ -18,8 +18,17 @@ image through ``VisualOdometry``. The visual trajectory is mapped back to the
 lidar frame as ``T_w_lidar = T_lidar_cam ∘ T_w_cam ∘ T_cam_lidar``
 (``CamLidarProcess.cpp:284-293``).
 
-Not ported yet: the coupled and mapping modes (``coupled=True``,
-``mapping=True``), which raise ``NotImplementedError`` naming ROADMAP A.8.
+Two further modes need a polar ingest. In every mode a chunk's visual frames
+run first: the visual step does not depend on the lidar. ``coupled=True``
+(``camlidar_coupled_chunk``): each frame's visual relative pose, mapped into
+the lidar frame and gated for plausibility and tracking health
+(``visual_prior_gate``), warm-starts the scan-to-scan solve in place of the
+constant-velocity prior: the coupling the reference sketches and ships
+disabled (``CamLidarProcess.cpp:278-307``, ``Frontend.cpp:90-127``).
+``mapping=True`` (``camlidar_slam_chunk``, with or without ``coupled``) adds
+the device-resident scan-to-map refinement behind the odometry, the
+reference's full topology (laserOdometry embeds the visual stack,
+laserMapping refines behind it); mapping does not feed back into odometry.
 """
 
 from __future__ import annotations
@@ -37,9 +46,14 @@ from ..ops import se3
 from ..utils import checkpoint as ckpt
 from ..utils.config import SystemConfig
 from ..utils.device import resolve_device
+from . import device_mapping as dm
 from . import lidar_odometry as lo
 from . import visual_frontend as vf
 from .pipeline import _check_ingest, _pack_polar, _quantize, _register_raw
+
+
+# m: the largest visual step that may warm-start the scan-to-scan solve
+MAX_PRIOR_STEP = 2.0
 
 
 def camera_cloud_select(raw: np.ndarray, R_cl: np.ndarray, t_cl: np.ndarray, cap: int):
@@ -108,6 +122,91 @@ def cam_clouds_from_polar(pimgs: torch.Tensor, R_cl: torch.Tensor, t_cl: torch.T
         outs.append(cam_pts[order])
         masks.append(torch.arange(cap, device=pts.device) < n_sel)
     return torch.stack(outs), torch.stack(masks)
+
+
+def visual_prior_gate(fallback_rel: se3.Pose, rel_cam: se3.Pose, T_lidar_cam: se3.Pose,
+                      T_cam_lidar: se3.Pose, max_prior_step: float,
+                      n_tracked: torch.Tensor | None = None, min_tracked: int = 0) -> se3.Pose:
+    """The visual relative pose T_cur_prev mapped into the lidar frame as a
+    warm start, T_lidar_cam ∘ rel_cam⁻¹ ∘ T_cam_lidar, or ``fallback_rel``
+    (the constant-velocity prior) unless it is plausible: a translation below
+    ``max_prior_step``, an angle below 0.6 rad, finite, and (``min_tracked``
+    > 0) at least ``min_tracked`` features tracked into the frame before
+    replenishment. The tracking-health term catches a camera that tracks
+    nothing while its pose stays plausibly small (the degraded mode of
+    ``Frontend.cpp:90-127``). Selected on the device: no host read."""
+    prior = se3.se3_compose(T_lidar_cam,
+                            se3.se3_compose(se3.se3_inverse(rel_cam), T_cam_lidar))
+    ang = 2.0 * torch.acos(torch.clamp(torch.abs(prior.q[0]), 0.0, 1.0))
+    ok = ((torch.linalg.vector_norm(prior.t) < max_prior_step) & (ang < 0.6)
+          & torch.all(torch.isfinite(prior.t)) & torch.all(torch.isfinite(prior.q)))
+    if n_tracked is not None and min_tracked > 0:
+        ok = ok & (n_tracked >= min_tracked)
+    return se3.Pose(torch.where(ok, prior.q, fallback_rel.q),
+                    torch.where(ok, prior.t, fallback_rel.t))
+
+
+def _visual_prior_gate(odo: lo.OdometryState, rel_cam: se3.Pose, T_lidar_cam: se3.Pose,
+                       T_cam_lidar: se3.Pose, max_prior_step: float,
+                       n_tracked: torch.Tensor | None = None, min_tracked: int = 0) -> se3.Pose:
+    """``visual_prior_gate`` falling back to the odometry's last relative pose."""
+    return visual_prior_gate(odo.pose_rel, rel_cam, T_lidar_cam, T_cam_lidar, max_prior_step,
+                             n_tracked=n_tracked, min_tracked=min_tracked)
+
+
+def _coupled_init(rels, n_tracked, T_lidar_cam: se3.Pose, T_cam_lidar: se3.Pose, vis_cfg,
+                  max_prior_step: float):
+    """The warm start of frame i's scan-to-scan solve, as ``init_of(i,
+    odo_state)`` of the odometry's frame loop: the gated visual prior of the
+    frame's ``rels[i]`` and ``n_tracked[i]`` (``visual_frames``)."""
+    min_tracked = int(vis_cfg.coupled_min_track_ratio * vis_cfg.max_tracked)
+    return lambda i, odo: _visual_prior_gate(odo, rels[i], T_lidar_cam, T_cam_lidar,
+                                             max_prior_step, n_tracked=n_tracked[i],
+                                             min_tracked=min_tracked)
+
+
+def camlidar_coupled_chunk(odo_state: lo.OdometryState, vis_state: vf.VisualChunkState,
+                           pimgs: torch.Tensor, imgs: torch.Tensor, clouds: torch.Tensor,
+                           cmasks: torch.Tensor, T_lidar_cam: se3.Pose, T_cam_lidar: se3.Pose,
+                           cam, lidar_cfg, odom_cfg, vis_cfg,
+                           max_prior_step: float = MAX_PRIOR_STEP):
+    """K frames of coupled camera + lidar odometry: the visual frontend's
+    frames, then the scan-to-scan solves, each warm-started by its frame's
+    gated visual relative pose (``visual_prior_gate``); the visual step does
+    not depend on the lidar. ``pimgs`` (K, R, W, C) polar cells, ``imgs``
+    (K, H, W), ``clouds`` (K, M, 3) camera-frame depth clouds with masks
+    (K, M). Returns (odometry state, visual state, lidar world poses (K,),
+    visual camera-world poses (K,))."""
+    vis_state, visual, rels, n_trk = vf.visual_frames(vis_state, imgs, clouds, cmasks, cam,
+                                                      vis_cfg)
+    odo_state, lidar = lo.odometry_chunk_polar(
+        odo_state, pimgs, lidar_cfg, odom_cfg, device=pimgs.device,
+        init_of=_coupled_init(rels, n_trk, T_lidar_cam, T_cam_lidar, vis_cfg, max_prior_step))
+    return odo_state, vis_state, lidar, visual
+
+
+def camlidar_slam_chunk(odo_state: lo.OdometryState, map_state: dm.DeviceMapState,
+                        vis_state: vf.VisualChunkState, pimgs: torch.Tensor,
+                        imgs: torch.Tensor, clouds: torch.Tensor, cmasks: torch.Tensor,
+                        T_lidar_cam: se3.Pose, T_cam_lidar: se3.Pose, cam, lidar_cfg, odom_cfg,
+                        map_cfg, vis_cfg, start_idx: int = 0, map_skip: int = 1,
+                        coupled: bool = False, max_prior_step: float = MAX_PRIOR_STEP):
+    """K frames of the reference's full topology: visual frontend, scan-to-scan
+    odometry (warm-started by the gated visual pose when ``coupled``) and
+    scan-to-map refinement (``laserOdometry.cpp:248,308``,
+    ``laserMapping.cpp:934``) through ``slam_chunk_polar``. Frame
+    ``start_idx + i`` is mapped when it is a multiple of ``map_skip``; the
+    frames between compose the map's last correction with their odometry
+    pose. Returns (odometry state, map state, visual state, odometry poses
+    (K,), mapped poses (K,), visual camera-world poses (K,))."""
+    vis_state, visual, rels, n_trk = vf.visual_frames(vis_state, imgs, clouds, cmasks, cam,
+                                                      vis_cfg)
+    init_of = (_coupled_init(rels, n_trk, T_lidar_cam, T_cam_lidar, vis_cfg, max_prior_step)
+               if coupled else None)
+    odo_state, map_state, lidar, mapped = dm.slam_chunk_polar(
+        odo_state, map_state, pimgs, lidar_cfg, odom_cfg, map_cfg, start_idx, map_skip,
+        device=pimgs.device, init_of=init_of)
+    return odo_state, map_state, vis_state, lidar, mapped, visual
 
 
 @dataclass
@@ -204,27 +303,28 @@ class CamLidarPipeline:
         ((H, W) uint8, or float in [0, 1]), ``chunk`` frames per upload. Frame
         0 bootstraps both states from its raw points (and its image as
         given); later images travel as uint8. Returns both trajectories;
-        frame 0 is the identity in both. The parameters are the reference's;
-        ``coupled`` and ``mapping`` raise ``NotImplementedError`` (ROADMAP
-        A.8). A checkpoint carries the odometry and the visual chunk states,
-        the lidar trajectory of frames 1 on (``traj_q`` / ``traj_t``) and the
-        visual one (``traj_v_q`` / ``traj_v_t``), as the reference writes
-        them."""
-        if coupled:
-            raise NotImplementedError(
-                "coupled=True (the visual pose warm-starting lidar odometry) is not ported "
-                "yet (ROADMAP A.8 follow-up: cam-lidar coupled/mapping modes)")
-        if mapping:
-            raise NotImplementedError(
-                "mapping=True (cam-lidar with device mapping) is not ported yet "
-                "(ROADMAP A.8 follow-up: cam-lidar coupled/mapping modes)")
+        frame 0 is the identity in both. The parameters are the reference's.
+        ``coupled`` warm-starts the lidar odometry with the gated visual pose
+        (``camlidar_coupled_chunk``); ``mapping`` adds the scan-to-map stage
+        on every ``map_skip``-th frame (``camlidar_slam_chunk``) and fills
+        ``mapped_positions`` / ``mapped_quats``. Both need a polar ingest
+        (``ValueError`` otherwise; the reference asserts). A checkpoint
+        carries the odometry and the visual chunk states, the lidar
+        trajectory of frames 1 on (``traj_q`` / ``traj_t``) and the visual
+        one (``traj_v_q`` / ``traj_v_t``), and with ``mapping`` the map state
+        (``mapst_*``) and the mapped trajectory (``traj_m_q`` / ``traj_m_t``),
+        as the reference writes them."""
         _check_ingest(ingest, allowed=("uint16", "polar", "polar2"))
+        if (coupled or mapping) and not ingest.startswith("polar"):
+            raise ValueError(f"coupled and mapping modes need a polar ingest, got {ingest!r}")
         n = len(scans)
         if len(images) != n:
             raise ValueError(f"{n} scans but {len(images)} images: run_chunked pairs them 1:1")
         dev = self.device
         lcfg, vcfg = self.cfg.lidar, self.cfg.visual
         cap = vcfg.depth_cloud_cap
+        traj_keys = ("q", "t", "v_q", "v_t") + (("m_q", "m_t") if mapping else ())
+        map_state = dm.init_state(self.cfg.mapping, dev) if mapping else None
 
         if resume:
             start, odo_state, traj_q, traj_t = ckpt.load_checkpoint(checkpoint_path, device=dev)
@@ -235,6 +335,12 @@ class CamLidarPipeline:
                                  "(no odometry or visual chunk state)")
             first = {"q": traj_q, "t": traj_t, "v_q": data["traj_v_q"],
                      "v_t": data["traj_v_t"]}
+            if mapping:
+                if "mapst_0" not in data:
+                    raise ValueError(f"{checkpoint_path} carries no map state: it was written "
+                                     "without mapping=True and cannot resume a mapping run")
+                map_state = ckpt.load_map_state(checkpoint_path, dev)
+                first.update(m_q=data["traj_m_q"], m_t=data["traj_m_t"])
         else:
             # frame 0 bootstraps both carried states
             raw0 = np.asarray(scans[0])[:, :3]
@@ -246,7 +352,7 @@ class CamLidarPipeline:
                 self.cam, vcfg)
             start = 1
             first = {k: np.zeros((0, 4 if k.endswith("q") else 3), np.float32)
-                     for k in ("q", "t", "v_q", "v_t")}
+                     for k in traj_keys}
         rec = ckpt.RunRecord(checkpoint_path, checkpoint_every, stop_after, start, first)
         R_cl = torch.from_numpy(self.R_cl).to(dev)
         t_cl = torch.from_numpy(self.t_cl.copy()).to(dev)
@@ -259,24 +365,37 @@ class CamLidarPipeline:
             if ingest.startswith("polar"):
                 pimgs = _pack_polar(raws, lcfg, ingest, dev)
                 dcx, dcm = cam_clouds_from_polar(pimgs, R_cl, t_cl, lcfg, cap)
-                odo_state, poses_l = lo.odometry_chunk_polar(odo_state, pimgs, lcfg,
-                                                             self.cfg.odometry, device=dev)
             else:
                 clouds = [self._cam_cloud(raw) for raw in raws]
                 dcx = lo.upload(np.stack([lo.quantize_points(c) for c, _ in clouds]), dev)
                 dcm = lo.upload(np.stack([m for _, m in clouds]), dev)
+            # the visual step does not depend on the lidar: its frames run first
+            vis_state, poses_c, rels, n_trk = vf.visual_frames(vis_state, dimgs, dcx, dcm,
+                                                               self.cam, vcfg)
+            init_of = (_coupled_init(rels, n_trk, self.T_lidar_cam, self.T_cam_lidar, vcfg,
+                                     MAX_PRIOR_STEP)
+                       if coupled else None)
+            poses_m = None
+            if mapping:
+                odo_state, map_state, poses_l, poses_m = dm.slam_chunk_polar(
+                    odo_state, map_state, pimgs, lcfg, self.cfg.odometry, self.cfg.mapping,
+                    start_idx=s, map_skip=map_skip, device=dev, init_of=init_of)
+            elif ingest.startswith("polar"):
+                odo_state, poses_l = lo.odometry_chunk_polar(
+                    odo_state, pimgs, lcfg, self.cfg.odometry, device=dev, init_of=init_of)
+            else:
                 odo_state, poses_l = lo.odometry_chunk_quantized(
                     odo_state, *_quantize(raws, self.capacity, dev), lcfg, self.cfg.odometry)
-            vis_state, poses_c = vf.visual_chunk(vis_state, dimgs, dcx, dcm, self.cam, vcfg)
-            rec.append(q=poses_l.q, t=poses_l.t, v_q=poses_c.q, v_t=poses_c.t)
+            rec.append(q=poses_l.q, t=poses_l.t, v_q=poses_c.q, v_t=poses_c.t,
+                       **({"m_q": poses_m.q, "m_t": poses_m.t} if mapping else {}))
             next_s = min(s + chunk, n)
             if rec.snapshot_due(next_s):
                 done = next_s - 1   # rows of frames 1 on
+                extra = {f"traj_{k}": rec.host(k)[:done] for k in traj_keys[2:]}
                 ckpt.save_checkpoint(
                     checkpoint_path, frame_idx=next_s, odom_state=odo_state,
                     trajectory_q=rec.host("q")[:done], trajectory_t=rec.host("t")[:done],
-                    visual_chunk=vis_state,
-                    extra={"traj_v_q": rec.host("v_q")[:done], "traj_v_t": rec.host("v_t")[:done]})
+                    visual_chunk=vis_state, map_state=map_state, extra=extra)
             if rec.stops(next_s):
                 n = next_s
                 break
@@ -294,8 +413,13 @@ class CamLidarPipeline:
         self.last_wall = wall
         ident_q = np.array([[1.0, 0.0, 0.0, 0.0]], np.float32)
         zero_t = np.zeros((1, 3), np.float32)
+        mapped_q = mapped_t = None
+        if mapping:
+            mapped_q = np.concatenate([ident_q, rec.host("m_q")[:n - 1]])
+            mapped_t = np.concatenate([zero_t, rec.host("m_t")[:n - 1]])
         return CamLidarResult(
             lidar_positions=np.concatenate([zero_t, lidar_t]),
             visual_positions=np.concatenate([zero_t, vis_t]),
             lidar_quats=np.concatenate([ident_q, lidar_q]),
-            visual_quats=np.concatenate([ident_q, vis_q]))
+            visual_quats=np.concatenate([ident_q, vis_q]),
+            mapped_positions=mapped_t, mapped_quats=mapped_q)

@@ -111,16 +111,17 @@ def _apply_correction(correction: se3.Pose, odom_pose: se3.Pose) -> se3.Pose:
 
 def _slam_scan(odo_state: OdometryState, map_state: DeviceMapState, n_frames: int, feats_of,
                odom_cfg: OdometryConfig, map_cfg: MappingConfig, start_idx: int,
-               map_skip: int):
-    """Frame by frame: features (``feats_of(i)``) → odometry → mapping on
-    frames whose global index ``start_idx + i`` is a multiple of
-    ``map_skip``, else the carried correction composed with the odometry
-    pose. Returns (odometry state, map state, odometry poses (K,), mapped
-    poses (K,))."""
+               map_skip: int, init_of=None):
+    """Frame by frame: features (``feats_of(i)``) → odometry (warm-started
+    by ``init_of(i, odo_state)`` where given) → mapping on frames whose
+    global index ``start_idx + i`` is a multiple of ``map_skip``, else the
+    carried correction composed with the odometry pose. Returns (odometry
+    state, map state, odometry poses (K,), mapped poses (K,))."""
     odom, mapped = [], []
     for i in range(n_frames):
         feats = feats_of(i)
-        odo_state, pose_w = odometry_step(odo_state, feats, odom_cfg)
+        init = None if init_of is None else init_of(i, odo_state)
+        odo_state, pose_w = odometry_step(odo_state, feats, odom_cfg, init_rel=init)
         if map_skip <= 1 or (start_idx + i) % map_skip == 0:
             map_state, refined = device_mapping_impl(
                 map_state, feats.less_sharp.xyz, feats.less_sharp.mask,
@@ -147,9 +148,12 @@ def slam_chunk_polar(
     start_idx: int = 0,
     map_skip: int = 1,
     device="cuda",
+    init_of=None,
 ):
-    """K frames of packed polar images through the whole lidar chain. Returns
-    (odometry state, map state, odometry poses (K,), mapped poses (K,))."""
+    """K frames of packed polar images through the whole lidar chain, frame
+    i's odometry warm-started by ``init_of(i, odo_state)`` where given.
+    Returns (odometry state, map state, odometry poses (K,), mapped poses
+    (K,))."""
     dev = resolve_device(device)
     if isinstance(imgs, np.ndarray):
         imgs = pc.polar_image_to_tensor(imgs, dev)
@@ -157,7 +161,7 @@ def slam_chunk_polar(
     return _slam_scan(
         odo_state, map_state, imgs.shape[0],
         lambda i: register_polar_impl(imgs[i], lidar_cfg).features,
-        odom_cfg, map_cfg, start_idx, map_skip,
+        odom_cfg, map_cfg, start_idx, map_skip, init_of,
     )
 
 

@@ -138,6 +138,7 @@ def scan_to_scan_impl(
     return pose
 
 
+# the JAX package jits ``scan_to_scan_impl`` under this name
 scan_to_scan = scan_to_scan_impl
 
 
@@ -201,10 +202,14 @@ def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t
 
 
-def _run_frames(state: OdometryState, n_frames: int, feats_of, odom_cfg: OdometryConfig):
+def _run_frames(state: OdometryState, n_frames: int, feats_of, odom_cfg: OdometryConfig,
+                init_of=None):
+    """Frame by frame: ``feats_of(k)`` → ``odometry_step``, warm-started by
+    ``init_of(k, state)`` where given (else the last relative pose)."""
     qs, ts = [], []
     for k in range(n_frames):
-        state, pose_w = odometry_step(state, feats_of(k), odom_cfg)
+        init = None if init_of is None else init_of(k, state)
+        state, pose_w = odometry_step(state, feats_of(k), odom_cfg, init_rel=init)
         qs.append(pose_w.q)
         ts.append(pose_w.t)
     return state, se3.Pose(torch.stack(qs), torch.stack(ts))
@@ -247,15 +252,18 @@ def odometry_chunk_polar(
     lidar_cfg: LidarConfig,
     odom_cfg: OdometryConfig,
     device="cuda",
+    init_of=None,
 ) -> tuple[OdometryState, se3.Pose]:
-    """K frames of packed polar images: decode → features → scan-to-scan.
-    Returns (final state, world poses stacked (K, 4) / (K, 3))."""
+    """K frames of packed polar images: decode → features → scan-to-scan,
+    frame k warm-started by ``init_of(k, state)`` where given. Returns
+    (final state, world poses stacked (K, 4) / (K, 3))."""
     dev = resolve_device(device)
     if isinstance(imgs, np.ndarray):
         imgs = pc.polar_image_to_tensor(imgs, dev)
     imgs = imgs.to(dev)
     return _run_frames(state, imgs.shape[0],
-                       lambda k: register_polar_impl(imgs[k], lidar_cfg).features, odom_cfg)
+                       lambda k: register_polar_impl(imgs[k], lidar_cfg).features, odom_cfg,
+                       init_of)
 
 
 class LidarOdometry:

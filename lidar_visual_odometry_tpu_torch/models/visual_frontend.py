@@ -435,17 +435,27 @@ def chunk_frame_step(carry: VisualChunkState, img: torch.Tensor, pts: torch.Tens
     return VisualChunkState(table, pose_w, rel, pyr, dc), rel, n_tracked
 
 
+def visual_frames(state: VisualChunkState, imgs: torch.Tensor, clouds: torch.Tensor,
+                  cloud_masks: torch.Tensor, cam, cfg: VisualConfig):
+    """``visual_chunk`` that also keeps each frame's T_cur_prev and tracked
+    count (``chunk_frame_step``). Returns (state, world poses (K,), the K
+    relative poses, the K counts)."""
+    qs, ts, rels, n_tracked = [], [], [], []
+    for k in range(imgs.shape[0]):
+        state, rel, n_trk = chunk_frame_step(state, imgs[k], clouds[k], cloud_masks[k], cam, cfg)
+        qs.append(state.pose_w.q)
+        ts.append(state.pose_w.t)
+        rels.append(rel)
+        n_tracked.append(n_trk)
+    return state, se3.Pose(torch.stack(qs), torch.stack(ts)), rels, n_tracked
+
+
 def visual_chunk(state: VisualChunkState, imgs: torch.Tensor, clouds: torch.Tensor,
                  cloud_masks: torch.Tensor, cam, cfg: VisualConfig):
     """K frames of the visual frontend: imgs (K, H, W) uint8 or float32 in
     [0, 1], clouds (K, M, 3) camera-frame points, masks (K, M). Returns
     (state, world poses stacked (K, 4) / (K, 3))."""
-    qs, ts = [], []
-    for k in range(imgs.shape[0]):
-        state, _, _ = chunk_frame_step(state, imgs[k], clouds[k], cloud_masks[k], cam, cfg)
-        qs.append(state.pose_w.q)
-        ts.append(state.pose_w.t)
-    return state, se3.Pose(torch.stack(qs), torch.stack(ts))
+    return visual_frames(state, imgs, clouds, cloud_masks, cam, cfg)[:2]
 
 
 def init_chunk_state(img0: torch.Tensor, pts0: torch.Tensor, mask0: torch.Tensor, cam,

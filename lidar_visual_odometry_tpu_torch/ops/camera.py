@@ -2,7 +2,9 @@
 ``lidar_visual_odometry_tpu/ops/camera.py`` (≡ the reference's
 ``PinholeModel``, ``src/vloam/PinholeModel.cpp``): projection ``xyz_to_uv``
 (``:98-153``), bounds test ``is_in_image`` (``:79-91``), over (..., 3)
-tensors. The intrinsics are plain floats and the distortion a (5,) tensor.
+tensors, and the undistortion of points (iterative) and of images (a source
+map, ``:27-28``, and a bilinear remap, ``:192-200``). The intrinsics are plain
+floats and the distortion a (5,) tensor.
 """
 
 from __future__ import annotations
@@ -76,3 +78,35 @@ def is_in_image(cam: Pinhole, uv: torch.Tensor, boundary: float = 0.0,
     h = cam.height * scale
     return ((uv[..., 0] >= boundary) & (uv[..., 0] < w - boundary)
             & (uv[..., 1] >= boundary) & (uv[..., 1] < h - boundary))
+
+
+def undistort_points(cam: Pinhole, uv: torch.Tensor, iters: int = 5) -> torch.Tensor:
+    """Invert the distortion of pixel coords (..., 2) by ``iters`` fixed-point
+    steps."""
+    xn0 = normalized(cam, uv)
+    xn = xn0
+    for _ in range(iters):
+        xn = xn - (distort(cam, xn) - xn0)
+    return torch.stack([cam.fx * xn[..., 0] + cam.cx, cam.fy * xn[..., 1] + cam.cy], dim=-1)
+
+
+def undistort_rectify_map(cam: Pinhole) -> torch.Tensor:
+    """(H, W, 2) source-pixel map for image undistortion (≡
+    ``cv::initUndistortRectifyMap`` with new K = K): for each undistorted
+    output pixel, the distorted source location to sample. On the device of
+    ``cam.dist``."""
+    dev = cam.dist.device
+    v, u = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=dev),
+                          torch.arange(cam.width, dtype=torch.float32, device=dev),
+                          indexing="ij")
+    xd = distort(cam, normalized(cam, torch.stack([u, v], dim=-1)))
+    return torch.stack([cam.fx * xd[..., 0] + cam.cx, cam.fy * xd[..., 1] + cam.cy], dim=-1)
+
+
+def undistort_image(img: torch.Tensor, map_uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear remap through ``undistort_rectify_map`` (≡
+    ``PinholeModel::undistort_image``, ``cv::remap`` INTER_LINEAR); the
+    border clamps."""
+    from .image import bilinear
+
+    return bilinear(img, map_uv)

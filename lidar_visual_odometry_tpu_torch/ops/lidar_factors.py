@@ -88,3 +88,12 @@ def norm_plane_residuals(pose: se3.Pose, c: NormPlaneCorr) -> tuple[torch.Tensor
     r = torch.sum(y * c.n, dim=-1, keepdim=True) + c.d[..., None]
     J = torch.cat([c.n, se3._cross(y - pose.t, c.n)], dim=-1)
     return r, J[..., None, :]
+
+
+def point_residuals(pose: se3.Pose, p: torch.Tensor,
+                    target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Point-to-point r = R p + t − target (N, 3) and J (N, 3, 6)
+    (≡ LidarDistanceFactor)."""
+    y = se3.se3_apply(pose, p)
+    eye = torch.eye(3, dtype=y.dtype, device=y.device).expand(*y.shape[:-1], 3, 3)
+    return y - target, torch.cat([eye, -se3.so3_hat(y - pose.t)], dim=-1)

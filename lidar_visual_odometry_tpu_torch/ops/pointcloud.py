@@ -4,6 +4,9 @@
 Clouds are fixed-capacity tensors with validity masks, as in the reference:
 
 * raw padded batch ``PointBatch``: (N, 3) xyz + (N,) mask;
+* dense range image ``RangeImage``: the (rings, W) grid in azimuth order
+  (``build_range_image``), which ``compact_rings`` compacts; the pipelines
+  build the compacted grid in one pass (``build_compact_scan``);
 * compacted rings ``CompactScan``: valid returns shifted to the front of each
   (ring, azimuth) row in scan order, so the ±5-neighbour curvature stencil sees
   consecutive returns (``scanRegistration.cpp:246-266``).
@@ -34,6 +37,14 @@ class PointBatch(NamedTuple):
 
     xyz: torch.Tensor
     mask: torch.Tensor
+
+
+class RangeImage(NamedTuple):
+    """Dense (rings, W) scan grid in azimuth scan order."""
+
+    xyz: torch.Tensor       # (R, W, 3)
+    valid: torch.Tensor     # (R, W) bool
+    rel_time: torch.Tensor  # (R, W) float32, fraction of the scan period
 
 
 class CompactScan(NamedTuple):
@@ -145,6 +156,72 @@ def build_compact_scan(
     idx = torch.arange(width, dtype=torch.int32, device=points.device)[None, :]
     valid = idx < count[:, None]
     return CompactScan(grid[..., :3], valid, grid[..., 3], count)
+
+
+def build_range_image(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    n_scans: int,
+    width: int,
+    min_range: float,
+    max_range: float = 1e9,
+) -> RangeImage:
+    """Raw (N, 3) cloud → dense (rings, W) grid (the ring bucketing of
+    ``scanRegistration.cpp:160-241``): azimuth indexes the columns, and within
+    a cell the nearest return wins (a scatter-min on range²; of equal ranges
+    the last point, as the reference's scatter lands them in order). The
+    arithmetic is the reference's run op by op, as its tests call it: a true
+    division for the column. (Under ``jit`` the reference's compiler fuses
+    the range into its comparisons, and on the CPU a farther return then wins
+    some cells; ``build_compact_scan`` is the form the pipelines run.)"""
+    x, y = points[..., 0], points[..., 1]
+    rng_sq = torch.sum(points * points, dim=-1)
+    ring, in_fov = ring_index_hdl(points, n_scans)
+    ok = (
+        mask
+        & in_fov
+        & (rng_sq > min_range * min_range)
+        & (rng_sq < max_range * max_range)
+        & torch.all(torch.isfinite(points), dim=-1)
+    )
+    ori = -torch.atan2(y, x)
+    col = torch.floor((ori + math.pi) / (2.0 * math.pi) * width).to(torch.int64)
+    col = torch.clamp(col, 0, width - 1)
+    ring_c = torch.clamp(ring.to(torch.int64), 0, n_scans - 1)
+    sentinel = n_scans * width
+    flat = torch.where(ok, ring_c * width + col, torch.full_like(col, sentinel))
+
+    dev = points.device
+    big = torch.tensor(1e30, dtype=torch.float32, device=dev)
+    best = torch.full((sentinel + 1,), 1e30, dtype=torch.float32, device=dev)
+    best.scatter_reduce_(0, flat, torch.where(ok, rng_sq, big), reduce="amin")
+    nearest = ok & (best[flat] == rng_sq)
+    idx = torch.arange(points.shape[0], device=dev)
+    last = torch.full((sentinel + 1,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, flat, torch.where(nearest, idx, -1), reduce="amax")
+    winner = nearest & (last[flat] == idx)
+    dst = torch.where(winner, flat, torch.full_like(flat, sentinel))
+    xyz = torch.zeros((sentinel + 1, 3), dtype=points.dtype, device=dev)
+    xyz.index_put_((dst,), torch.where(winner[:, None], points, torch.zeros_like(points)))
+    valid = torch.zeros((sentinel + 1,), dtype=torch.bool, device=dev)
+    valid.index_put_((dst,), winner)
+    rel = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width
+    return RangeImage(xyz[:sentinel].reshape(n_scans, width, 3),
+                      valid[:sentinel].reshape(n_scans, width),
+                      rel.expand(n_scans, width))
+
+
+def compact_rings(ri: RangeImage) -> CompactScan:
+    """Shift each ring's valid cells to the front, in scan order
+    (``scanRegistration.cpp:256-266``)."""
+    W = ri.valid.shape[1]
+    order = torch.sort((~ri.valid).to(torch.uint8), dim=1, stable=True).indices
+    xyz = torch.gather(ri.xyz, 1, order[..., None].expand(-1, -1, 3))
+    rel_time = torch.gather(ri.rel_time, 1, order)
+    count = ri.valid.sum(dim=1, dtype=torch.int32)
+    idx = torch.arange(W, dtype=torch.int32, device=ri.valid.device)[None, :]
+    return CompactScan(xyz, idx < count[:, None], rel_time, count)
 
 
 def voxel_downsample_batched(

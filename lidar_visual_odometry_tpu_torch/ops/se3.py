@@ -90,6 +90,32 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(*q.shape[:-1], 3, 3)
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) → (..., 4), branch-free Shepperd's method: all four
+    candidates, the one with the largest pivot selected by ``torch.where``."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-24))
+
+    s0 = safe_sqrt(1.0 + tr) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    s2 = safe_sqrt(1.0 - m00 + m11 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], dim=-1)
+    s3 = safe_sqrt(1.0 - m00 - m11 + m22) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], dim=-1)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    return quat_normalize(q)
+
+
 def so3_hat(w: torch.Tensor) -> torch.Tensor:
     """(..., 3) → (..., 3, 3) skew-symmetric matrix."""
     zeros = torch.zeros_like(w[..., 0])
@@ -179,6 +205,12 @@ def se3_log(pose: Pose) -> torch.Tensor:
     return torch.cat([v, w], dim=-1)
 
 
+def so3t_exp(xi: torch.Tensor) -> Pose:
+    """Decoupled rotation / translation exponential (the reference's
+    ``so3Transexp``, Twist.h:206-215): the translation taken as it is."""
+    return Pose(so3_exp(xi[..., 3:]), xi[..., :3])
+
+
 def se3_compose(a: Pose, b: Pose) -> Pose:
     """a ∘ b (apply b first, then a)."""
     return Pose(quat_normalize(quat_mul(a.q, b.q)), quat_rotate(a.q, b.t) + a.t)
@@ -191,6 +223,53 @@ def se3_inverse(p: Pose) -> Pose:
 
 def se3_apply(p: Pose, x: torch.Tensor) -> torch.Tensor:
     return quat_rotate(p.q, x) + p.t
+
+
+def se3_apply_matmul(p: Pose, pts: torch.Tensor) -> torch.Tensor:
+    """One pose applied to an (N, 3) cloud as ``pts @ Rᵀ + t`` (geometry in
+    full float32: TF32 is off, ``utils/device.py``)."""
+    return pts @ quat_to_matrix(p.q).T + p.t
+
+
+def se3_adjoint(p: Pose) -> torch.Tensor:
+    """(..., 6, 6) adjoint in (v, ω) order: Ad = [[R, t^ R], [0, R]]
+    (the reference's ``SE3Adj``, Twist.h:156-167)."""
+    R = quat_to_matrix(p.q)
+    top = torch.cat([R, so3_hat(p.t) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_matrix(p: Pose) -> torch.Tensor:
+    """Pose → (..., 4, 4) homogeneous matrix."""
+    top = torch.cat([quat_to_matrix(p.q), p.t[..., :, None]], dim=-1)
+    bottom = torch.zeros((*p.t.shape[:-1], 1, 4), dtype=p.t.dtype, device=p.t.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(T: torch.Tensor) -> Pose:
+    return Pose(matrix_to_quat(T[..., :3, :3]), T[..., :3, 3])
+
+
+def quat_to_ypr(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) → (yaw, pitch, roll) in radians, ZYX (≡ Utility::R2ypr,
+    utility.h:77-96)."""
+    R = quat_to_matrix(q)
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([yaw, pitch, roll], dim=-1)
+
+
+def ypr_to_quat(ypr: torch.Tensor) -> torch.Tensor:
+    """(yaw, pitch, roll) → quaternion, ZYX (≡ Utility::ypr2R)."""
+    y, p, r = ypr.unbind(-1)
+    zeros = torch.zeros_like(y)
+    qz = so3_exp(torch.stack([zeros, zeros, y], dim=-1))
+    qy = so3_exp(torch.stack([zeros, p, zeros], dim=-1))
+    qx = so3_exp(torch.stack([r, zeros, zeros], dim=-1))
+    return quat_mul(qz, quat_mul(qy, qx))
 
 
 def pose_interpolate(p: Pose, s: torch.Tensor) -> Pose:

@@ -338,18 +338,19 @@ def test_visual_chunk_state_from_numpy_roundtrips_a_jax_checkpoint(tmp_path, jax
 
 
 def test_unported_modes_raise(seq_data, port_cfg, monkeypatch, tmp_path):
-    """The coupled and mapping modes raise, naming ROADMAP A.8. The options
-    A.7 ported run (tests/test_torch_visual_drivers.py holds them to the JAX
-    package): the default "uint16" ingest, whose lidar half is the uint16
-    odometry chunk bit for bit; a run stopped after frame 1 with a snapshot
-    and resumed, equal to the uninterrupted one bit for bit; and the
+    """The coupled and mapping modes, ported since (tests/test_torch_coupled.py
+    and tests/test_torch_coupled_mapping*.py hold them to the JAX package),
+    raise only for an ingest that is not polar, where the reference asserts.
+    The options A.7 ported run (tests/test_torch_visual_drivers.py holds them
+    to the JAX package): the default "uint16" ingest, whose lidar half is the
+    uint16 odometry chunk bit for bit; a run stopped after frame 1 with a
+    snapshot and resumed, equal to the uninterrupted one bit for bit; and the
     per-frame ``run``, whose lidar half is ``OdometryPipeline.run``'s."""
     _, scans, images = seq_data
     cfg, _ = port_cfg
     pipe = tcl.CamLidarPipeline(cfg, device="cpu")
-    for kw, what in ((dict(coupled=True), r"coupled.*A\.8"),
-                     (dict(mapping=True), r"mapping.*A\.8")):
-        with pytest.raises(NotImplementedError, match=what):
+    for kw in (dict(coupled=True), dict(mapping=True)):
+        with pytest.raises(ValueError, match="polar ingest"):
             pipe.run_chunked(scans, images, **kw)
     full = pipe.run_chunked(scans, images, chunk=2)
     odo = OdometryPipeline(cfg, device="cpu").run_chunked(scans, chunk=2, quantize=True)

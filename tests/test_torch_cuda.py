@@ -971,3 +971,65 @@ def test_resumed_run_is_bit_for_bit_on_the_card(dev, tmp_path, path):
         assert np.isfinite(f).all()
         np.testing.assert_array_equal(s, f[:3])
         np.testing.assert_array_equal(r, f)
+
+
+@pytest.mark.parametrize("mode", [dict(coupled=True), dict(mapping=True),
+                                  dict(coupled=True, mapping=True, map_skip=2)])
+def test_coupled_and_mapping_modes_on_the_card_match_the_cpu(dev, mode):
+    """``run_chunked`` in the coupled and mapping modes (``camlidar_coupled_chunk``,
+    ``camlidar_slam_chunk``) on the card: every kernel of the path launches
+    (K6 four times a tracked frame), and the trajectories agree with the
+    port on the CPU within the CPU tests' parity tolerances against the JAX
+    package (tests/test_torch_coupled*.py): 2e-3 m lidar, 5e-3 m visual,
+    1e-2 m mapped."""
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import CamLidarPipeline
+
+    scans, images = _corridor()
+    out = {}
+    for d in (dev, "cpu"):
+        kernels.reset_launch_counts()
+        out[str(d)] = CamLidarPipeline(_small_system(camera=True), capacity=65536,
+                                       device=d).run_chunked(scans, images, chunk=2,
+                                                             ingest="polar2", **mode)
+        if d == dev:
+            counts = kernels.launch_counts()
+    path = ("segment_sum_batched", "associate_kernel", "gn_inner_loop", "lk_level")
+    if mode.get("mapping"):
+        path += ("segment_sum", "block_topk_windowed")
+    assert min(counts[k] for k in path) > 0, counts
+    assert counts["lk_level"] == 4 * (len(scans) - 1)
+    card, cpu = out[str(dev)], out["cpu"]
+    names = ("lidar_positions", 2e-3), ("visual_positions", 5e-3), ("mapped_positions", 1e-2)
+    for name, tol in names[:3 if mode.get("mapping") else 2]:
+        assert np.isfinite(getattr(card, name)).all(), name
+        np.testing.assert_allclose(getattr(card, name), getattr(cpu, name), atol=tol,
+                                   err_msg=name)
+
+
+def test_solve_window_on_the_card_matches_the_cpu(dev, gen):
+    """One window solve (eight states, six iterations, the Jacobian by
+    ``torch.func.jacfwd``) on CUDA tensors against the same call on CPU
+    tensors: float32 Cholesky factorisations with 1e8 on the prior's
+    diagonal, 1e-4 apart."""
+    from lidar_visual_odometry_tpu_torch.models import backend
+    from lidar_visual_odometry_tpu_torch.ops import se3
+
+    def unit(n):
+        q = gen.normal(size=(n, 4))
+        q[:, 0] += 8.0
+        return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+    k = 8
+    arrays = dict(q=unit(k), p=gen.normal(size=(k, 3)), v=gen.normal(size=(k, 3)),
+                  dq=unit(k - 1), dv=gen.normal(size=(k - 1, 3)), dp=gen.normal(size=(k - 1, 3)),
+                  dt=np.full(k - 1, 0.1), rq=unit(k - 1), rt=0.5 * gen.normal(size=(k - 1, 3)))
+    out = {}
+    for d in ("cpu", dev):
+        t = {name: torch.tensor(a, dtype=torch.float32, device=d) for name, a in arrays.items()}
+        out[str(d)] = backend.solve_window(
+            backend.WindowState(t["q"], t["p"], t["v"]),
+            backend.ImuDelta(t["dq"], t["dv"], t["dp"], t["dt"]), se3.Pose(t["rq"], t["rt"]),
+            imu_weight=1.0, odom_weight=20.0, n_iters=6)
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert b.is_cuda and torch.isfinite(b).all()
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4)

@@ -472,14 +472,6 @@ def _basalt_fixture():
     return T_w_h, T_w_t, p_h
 
 
-def _se3_adjoint(p):
-    """(6, 6) adjoint in (v, ω) ordering, [[R, t^ R], [0, R]] (the JAX
-    package's ``se3.se3_adjoint``)."""
-    R = tse3.quat_to_matrix(p.q)
-    return torch.cat([torch.cat([R, tse3.so3_hat(p.t) @ R], dim=-1),
-                      torch.cat([torch.zeros_like(R), R], dim=-1)], dim=-2)
-
-
 @pytest.mark.parametrize("wrt", ["host", "target"])
 def test_basalt_and_direct_jacobians_match_autodiff(wrt):
     """``tests/test_sqrt_factor.py``'s check on the port's SE(3): the
@@ -494,7 +486,7 @@ def test_basalt_and_direct_jacobians_match_autodiff(wrt):
     R_t_inv = tse3.quat_to_matrix(tse3.quat_conj(T_w_t.q))
     dpw = torch.cat([torch.eye(3), -tse3.so3_hat(p_w)], dim=-1)
     sign = 1.0 if wrt == "host" else -1.0
-    J_basalt = sign * (duv @ dp_drel @ _se3_adjoint(tse3.se3_inverse(T_w_t)))
+    J_basalt = sign * (duv @ dp_drel @ tse3.se3_adjoint(tse3.se3_inverse(T_w_t)))
     J_direct = sign * (duv @ R_t_inv @ dpw)
 
     def f(xi):

@@ -136,7 +136,8 @@ def test_run_chunked_ragged_chunk_and_polar(seq_scans):
 def test_port_imports_no_jax():
     """The port imports torch and numpy only: no jax, nothing of the JAX
     package, with every module imported, the k-NN entry points of kernels
-    K7, K8 and K5p and the direct VO modules among them."""
+    K7, K8 and K5p, the direct VO modules, the IMU back-end and the coupled
+    and mapping cam-lidar chunks among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import lidar_visual_odometry_tpu_torch as p\n"
@@ -160,6 +161,10 @@ def test_port_imports_no_jax():
         "assert callable(direct_vo.DirectVOChunked.run_chunked)\n"
         "assert all(callable(f) for f in (direct_vo.direct_chunk, keyframe.select_points,\n"
         "                                 window_ba.refine, sqrt_photometric.condense))\n"
+        "from lidar_visual_odometry_tpu_torch.models import backend, imu_fusion\n"
+        "from lidar_visual_odometry_tpu_torch.models import cam_lidar_pipeline as cl\n"
+        "assert all(callable(f) for f in (backend.solve_window, imu_fusion.ImuFusedOdometry,\n"
+        "                                 cl.camlidar_coupled_chunk, cl.camlidar_slam_chunk))\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -33,7 +33,12 @@ pipeline up and measures:
   and the ``"uint16"`` ingest, ``OdometryPipeline.run``,
   ``FullPipeline.run_chunked`` (``"uint16"``), ``FullPipeline.run`` with the
   device map and with the host cube map, and ``CamLidarPipeline.run_chunked``
-  (``"uint16"``) and ``.run``.
+  (``"uint16"``) and ``.run``. ``imu`` runs ``ImuFusedOdometry.process``
+  over the frames with ``synthesize_imu``'s bundles, timing each window
+  solve (the first ones included), then on the last solve's inputs times
+  ``solve_window`` and its parts apart: one ``torch.func.jacfwd`` Jacobian,
+  the same Jacobian by ``torch.func.jacrev``, the damped Cholesky step and
+  the χ² evaluation, and traces one solve.
 
 Scans and images are rendered in threads with numpy's BLAS held to one
 thread (several BLAS threads under several Python threads have corrupted
@@ -42,7 +47,7 @@ renders).
 Writes ``<out>/profile_port.json`` and prints a summary. Needs a CUDA device.
 
     python tools/profile_port.py [--frames 17]
-        [--paths odometry,slam,slam_dense,camlidar,knn,direct,drivers] [--out DIR]
+        [--paths odometry,slam,slam_dense,camlidar,knn,direct,drivers,imu] [--out DIR]
 """
 
 from __future__ import annotations
@@ -152,6 +157,76 @@ def _trace(run, frames):
         "top_ops_by_device_time": [
             {"op": e.key, "device_ms": _device_us(e) / 1e3, "calls": e.count} for e in ops[:25]
         ],
+    }
+
+
+def _median_ms(fn, reps=5):
+    """Median wall ms of ``fn()`` over ``reps`` calls, synchronised."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def imu_times(scans, seq, cfg, dev):
+    """The IMU-fused odometry's window solves: each solve of one run over
+    the frames, then the last solve's parts apart (``--paths imu``)."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.data import sync, synthetic
+    from lidar_visual_odometry_tpu_torch.models import backend, imu_fusion
+
+    stamps, accel, gyro = synthetic.synthesize_imu(seq, frame_period=0.1, rate_hz=100.0)
+    dts = np.full(stamps.shape, 0.01, np.float32)
+    bundles = sync.bundle_imu(np.arange(len(scans)) * 0.1, stamps)
+    solve, calls, solve_ms = imu_fusion.solve_window, [], []
+
+    def recorded(*a, **kw):
+        calls.append((a, kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(*a, **kw)
+        torch.cuda.synchronize()
+        solve_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    fuser = imu_fusion.ImuFusedOdometry(cfg, device=dev)
+    imu_fusion.solve_window = recorded
+    try:
+        for k, i in enumerate(bundles):
+            fuser.process(scans[k], accel[i], gyro[i], dts[i])
+    finally:
+        imu_fusion.solve_window = solve
+    (state0, deltas, rels), kw = calls[-1]
+    weights = dict(imu_weight=kw["imu_weight"], odom_weight=kw["odom_weight"],
+                   prior_weight=1e4)
+    dx0 = torch.zeros(state0.q.shape[0] * 9, device=dev)
+
+    def residuals(dx):
+        return backend.window_residuals(dx, state0, state0, deltas, rels, **weights)
+
+    J = torch.func.jacfwd(residuals)(dx0)
+    r = residuals(dx0)
+    return {
+        "solves": len(solve_ms), "n_iters": kw["n_iters"],
+        "jacobian_shape": list(J.shape),
+        "solve_ms_each_in_the_run": solve_ms,
+        "solve_ms": _median_ms(lambda: solve(*calls[-1][0], **kw)),
+        "jacfwd_ms": _median_ms(lambda: torch.func.jacfwd(residuals)(dx0)),
+        "jacrev_ms": _median_ms(lambda: torch.func.jacrev(residuals)(dx0)),
+        "jacrev_against_jacfwd_largest_difference": float(
+            (torch.func.jacrev(residuals)(dx0) - J).abs().max()),
+        "damped_step_ms": _median_ms(lambda: backend.damped_step(J.T @ J, J.T @ r)),
+        "residuals_ms": _median_ms(lambda: residuals(dx0)),
+        "trace_of_one_solve": {k: v for k, v in _trace(
+            lambda: solve(*calls[-1][0], **kw).p.cpu().numpy(), 1).items()
+            if k != "associate_kernel_by_call"},
     }
 
 
@@ -477,6 +552,9 @@ def main() -> int:
             r["top_ops_by_device_time"] = r["top_ops_by_device_time"][:10]
             result["drivers"][name] = r
 
+    if "imu" in paths:
+        result["imu"] = imu_times(scans, seq, cfg, dev)
+
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_port.json"), "w") as f:
         json.dump(result, f, indent=1)
@@ -491,6 +569,9 @@ def main() -> int:
                                                  "device_events_per_frame")))
             continue
         r = result[path]
+        if path == "imu":
+            print("imu", json.dumps(r))
+            continue
         print(path, json.dumps({k: v for k, v in r.items()
                                 if k not in ("top_ops_by_device_time", "mapped_positions")}))
         for row in r.get("top_ops_by_device_time", [])[:15]:

@@ -111,6 +111,30 @@ Phase 8  runs the cam-lidar coupled and mapping modes and the IMU-fused
          1e-3 m of the JAX run's and nearer to them than the same run's
          odometry alone, K1-K3 launched, the window solve's and the
          odometry's ms a frame printed.
+Phase 9  runs the distributed layer (``parallel/``) at full width over the
+         first 17 frames against ``tools/jax_reference_parallel.json`` (from
+         ``tools/jax_reference_parallel.py``: the JAX package on the CPU over 8
+         virtual devices; the inputs must hash alike):
+         ``DistributedSlamPipeline(SystemConfig()).run``, the coupled
+         ``DistributedCamLidarPipeline(camlidar_config()).run`` and
+         ``sharded_refine`` on a 5-keyframe direct-VO window (1024 points,
+         level 0, pairs within 2). 9a on one NCCL rank in this process: each
+         ATE (odometry, mapped, ``ate_visual``) within 0.01 m of the JAX
+         run's, the SLAM's positions within 5e-4 m (odometry) and 5e-3 m
+         (mapped) of 7d's ``FullPipeline(device_map=False).run``, K1, the
+         flat K1, K2 and K6 (four a tracked frame) launched, K3 not (it is
+         left under a reduction). 9b on two gloo ranks on the one card with
+         CUDA tensors (NCCL refuses two ranks on one GPU), started by
+         ``parallel.launch``: the same runs and gates in each rank, the ranks
+         agreeing within 1e-6 on every pose, their odometry positions within
+         2e-3 m of 9a's and their mapped ones within 5e-3 m, and
+         ``sharded_refine``'s positions within 1e-3 m of JAX's.
+Phase 10 writes the first 17 scans as a KITTI sequence (``.bin``,
+         ``times.txt``, ``calib.txt``, poses), runs
+         ``scripts/run_kitti_torch.py --mapping --device cuda`` on it and
+         demands its trajectory file equal, bit for bit, the same
+         ``FullPipeline.run_chunked`` on the scans in memory, and
+         ``NativeScanReader`` return the scans bit for bit.
 
 Prints one JSON line with all ten kernels' numbers, K7's two output forms in
 two rows (launches counted on the
@@ -169,6 +193,12 @@ DRIVERS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # tools/jax_reference_modes.py: phase 8's gates.
 MODES_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "tools", "jax_reference_modes.json")
+# The JAX package's distributed drivers and sharded BA on the same sequence's
+# first 17 frames, run on the CPU over 8 virtual devices by
+# tools/jax_reference_parallel.py: phase 9's gates.
+PARALLEL_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tools", "jax_reference_parallel.json")
+ROOT = os.path.dirname(os.path.abspath(__file__))
 ATE_MARGIN = 0.01
 SHORT_FRAMES = 17     # phase 7: the per-frame SLAM and the camera runs
 CHECKPOINT_EVERY, STOP_AFTER = 8, 24   # phase 7f
@@ -186,6 +216,20 @@ IMU_TOL_M = 1e-3
 DENSE_FRAMES = 17     # phase 3b
 DENSE_TOL_M = 1e-4
 MAP_FRAMES = 9        # phase 1: frames merged into the k-NN kernels' world map
+# phase 9: the kernels of the distributed path (K1, the flat K1, K2; K6 too on
+# the cam-lidar driver); ranks agree within RANKS_AGREE on every pose
+# (tests/test_multiprocess.py's bound); the gloo fleet's odometry positions
+# and mapped positions lie within 2e-3 m of the NCCL rank's (a missing
+# reduction would solve from half the features); the sharded BA's
+# positions within BA_TOL_M of JAX's; the NCCL rank's SLAM within
+# HOST_MAP_TOL_M (odometry, mapped) of FullPipeline(device_map=False).run
+# (tests/test_parallel.py's bounds)
+PARALLEL_PATH = ("segment_sum_batched", "segment_sum", "associate_kernel")
+RANKS_AGREE = 1e-6
+GLOO_VS_NCCL_M = {"slam_odometry": 2e-3, "camlidar_lidar": 2e-3, "slam_mapped": 2e-3,
+                  "camlidar_mapped": 2e-3}
+BA_TOL_M = 1e-3
+HOST_MAP_TOL_M = (5e-4, 5e-3)
 
 N_FRAMES = 49
 SEED = 0
@@ -1105,7 +1149,9 @@ def phase6_direct(scans, images, gt_rel, dev):
 
 def phase7_drivers(scans, images, gt, gt_rel, digest, phase2, phase3, dev):
     """The per-frame drivers, the default ingests and checkpoint / resume at
-    full width (7a-7f). Raises on a failed gate; prints a line a sub-phase."""
+    full width (7a-7f). Raises on a failed gate; prints a line a sub-phase.
+    Returns 7d's ``FullPipeline(device_map=False).run`` (odometry, mapped)
+    results, phase 9's single-device yardstick."""
     import torch
 
     from lidar_visual_odometry_tpu_torch import kernels
@@ -1187,9 +1233,11 @@ def phase7_drivers(scans, images, gt, gt_rel, digest, phase2, phase3, dev):
           f"{counts}", flush=True)
 
     # 7d: FullPipeline.run on the device map and on the host cube map
+    per_frame_slam = {}
     for device_map in (True, False):
         (odo, mapped), counts, wall = run(lambda: FullPipeline(
             cfg, device_map=device_map, device=dev).run(scans[:m]))
+        per_frame_slam[device_map] = (odo, mapped)
         launched("7d", counts, ("segment_sum", "block_topk_windowed"))
         same("7d", "FullPipeline.run's odometry positions and 7b's",
              odo.positions, per.positions[:m])
@@ -1250,6 +1298,7 @@ def phase7_drivers(scans, images, gt, gt_rel, digest, phase2, phase3, dev):
           f"equal phase 2's bit for bit, {frames / wall:.2f} frames/s over both calls; "
           f"SLAM likewise equal to phase 3's, {frames / wall_slam:.2f} frames/s; the "
           f"checkpoints {left} removed with their directory", flush=True)
+    return per_frame_slam[False]
 
 
 def phase8_modes(scans, images, seq, gt, gt_rel, phase3_mapped, phase4, dev):
@@ -1430,6 +1479,268 @@ def phase8_modes(scans, images, seq, gt, gt_rel, phase3_mapped, phase4, dev):
           f"{1e3 * (wall - sum(solve_s)) / n:.1f} ms/frame for the rest (odometry, "
           f"preintegration), launches {counts} "
           f"({ {k: round(v / n, 2) for k, v in counts.items()} } a frame)", flush=True)
+
+
+def _ba_window(scans, images, cfg, ref):
+    """The direct-VO window of ``tools/jax_reference_parallel.py``: level-0
+    images, camera-frame points and masks of the keyframes ``ba_frames``
+    (``camera_cloud_select``, every ``ba_stride``-th point)."""
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import camera_cloud_select
+
+    E = np.asarray(cfg.extrinsic.matrix, np.float32)
+    imgs, pts, masks = [], [], []
+    for k in ref["ba_frames"]:
+        xyz, m = camera_cloud_select(np.asarray(scans[k])[:, :3], E[:, :3], E[:, 3],
+                                     ref["ba_cloud_cap"])
+        pts.append(xyz[::ref["ba_stride"]])
+        masks.append(m[::ref["ba_stride"]])
+        imgs.append(np.asarray(images[k], np.float32))
+    return np.stack(imgs), np.stack(pts), np.stack(masks)
+
+
+def phase9_rank(mesh, inputs):
+    """Phase 9 on one rank of ``mesh``: ``DistributedSlamPipeline(SystemConfig()).run``
+    and the coupled ``DistributedCamLidarPipeline(camlidar_config()).run`` on
+    the scans (and images) ``scan0`` …, and ``sharded_refine`` on the BA
+    window ``ba_*``. Each run's launch counts start at 0 just before it.
+    Returns numpy arrays: positions, poses, seconds, counts, peak memory.
+    ``parallel.launch`` calls it in each rank process; one NCCL rank calls it
+    in the script's own."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch import kernels
+    from lidar_visual_odometry_tpu_torch.ops import camera, se3
+    from lidar_visual_odometry_tpu_torch.parallel import sharded_ba
+    from lidar_visual_odometry_tpu_torch.parallel.distributed_camlidar import (
+        DistributedCamLidarPipeline,
+    )
+    from lidar_visual_odometry_tpu_torch.parallel.distributed_pipeline import (
+        DistributedSlamPipeline,
+    )
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    n = int(inputs["n"])
+    scans = [inputs[f"scan{k}"] for k in range(n)]
+    images = [inputs[f"image{k}"] for k in range(n)]
+    dev = mesh.device
+    out = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        out[f"{name}_s"] = np.float64(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        out[f"{name}_launch_names"] = np.array(list(counts))
+        out[f"{name}_launches"] = np.array(list(counts.values()), np.int64)
+        return res
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    odom, mapped, _ = counted("slam", lambda: DistributedSlamPipeline(
+        SystemConfig(), n_devices=mesh.size, device="cuda").run(scans))
+    out.update(slam_odometry=odom, slam_mapped=mapped)
+    cl_cfg = camlidar_config()
+    odom, mapped, vis, _ = counted("camlidar", lambda: DistributedCamLidarPipeline(
+        cl_cfg, n_devices=mesh.size, device="cuda").run(scans, images))
+    out.update(camlidar_lidar=odom, camlidar_mapped=mapped, camlidar_visual=vis)
+    t = {k: torch.from_numpy(inputs[k]).to(dev) for k in ("ba_imgs", "ba_pts", "ba_masks",
+                                                           "ba_init_q", "ba_init_t")}
+    poses = counted("ba", lambda: sharded_ba.sharded_refine(
+        mesh, (t["ba_imgs"],), t["ba_pts"], t["ba_masks"], se3.Pose(t["ba_init_q"], t["ba_init_t"]),
+        camera.Pinhole.from_config(cl_cfg.camera, dev), n_iters=int(inputs["ba_n_iters"]),
+        level=0, pair_radius=int(inputs["ba_pair_radius"])))
+    out.update(ba_q=poses.q, ba_t=poses.t, peak_mib=np.float64(
+        torch.cuda.max_memory_allocated(dev) / 2**20))
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+def phase9_distributed(scans, images, gt, gt_rel, host_map):
+    """The distributed layer at full width over the corridor's first 17
+    frames (9a one NCCL rank in this process, 9b two gloo ranks on the one
+    card with CUDA tensors), against ``tools/jax_reference_parallel.json``.
+    Raises on a failed gate; prints a line a run."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.eval import metrics
+    from lidar_visual_odometry_tpu_torch.parallel import launch, multihost
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+
+    with open(PARALLEL_REFERENCE) as f:
+        ref = json.load(f)
+    m = ref["frames"]
+    _check_inputs("9", ref, _sha256((*scans[:m], *images[:m])))
+    imgs, pts, masks = _ba_window(scans, images, camlidar_config(), ref)
+    if _sha256((imgs, pts, masks)) != ref["ba_inputs_sha256"]:
+        raise AssertionError("phase 9: the BA window is not the reference's")
+    inputs = {"n": np.int64(m), **{f"scan{k}": scans[k] for k in range(m)},
+              **{f"image{k}": images[k] for k in range(m)},
+              "ba_imgs": imgs, "ba_pts": pts, "ba_masks": masks,
+              "ba_init_q": np.asarray(ref["ba_init_q"], np.float32),
+              "ba_init_t": np.asarray(ref["ba_init_t"], np.float32),
+              "ba_n_iters": np.int64(ref["ba_n_iters"]),
+              "ba_pair_radius": np.int64(ref["ba_pair_radius"])}
+    ba_true = np.asarray(ref["ba_true_t"])
+
+    def diff(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    def gates(sub, r, rank=""):
+        """The ATE gates, the launches, and the line of one rank's runs."""
+        text = []
+        for name, key, truth, align in (
+                ("slam_odometry", "slam_odometry", gt[:m], True),
+                ("slam_mapped", "slam_mapped", gt[:m], True),
+                ("camlidar_lidar", "camlidar_lidar", gt[:m], True),
+                ("camlidar_mapped", "camlidar_mapped", gt[:m], True),
+                ("camlidar_ate_visual", "camlidar_visual", gt_rel[:m], False)):
+            pos = r[key]
+            if pos.shape != (m, 3) or not np.isfinite(pos).all():
+                raise AssertionError(f"phase {sub}{rank}: bad {name} trajectory {pos.shape}")
+            ate = metrics.ate_rmse(pos, truth, align=align)
+            want = ref[f"{name}_m" if name.endswith("visual") else f"{name}_ate_m"]
+            jax_pos = ref[f"{key}_positions"]
+            if not ate <= want + ATE_MARGIN:
+                raise AssertionError(f"phase {sub}{rank}: {name} ATE {ate} m exceeds the JAX "
+                                     f"reference {want} + {ATE_MARGIN}")
+            text.append(f"{name} ATE {ate:.5f} m (JAX CPU {want:.5f} m), largest position "
+                        f"difference from JAX {diff(pos, jax_pos):.5f} m")
+        counts = {}
+        for run in ("slam", "camlidar", "ba"):
+            counts[run] = {str(k): int(v) for k, v in zip(r[f"{run}_launch_names"],
+                                                          r[f"{run}_launches"]) if v}
+        for run, names in (("slam", PARALLEL_PATH), ("camlidar", PARALLEL_PATH + ("lk_level",))):
+            if min(counts[run].get(k, 0) for k in names) == 0:
+                raise AssertionError(f"phase {sub}{rank}: a kernel of the {run} path was never "
+                                     f"launched: {counts[run]}")
+        if counts["camlidar"]["lk_level"] != 4 * (m - 1):
+            raise AssertionError(f"phase {sub}{rank}: expected 4 lk_level launches a tracked "
+                                 f"frame: {counts['camlidar']['lk_level']} over {m - 1}")
+        if "gn_inner_loop" in counts["slam"] or "gn_inner_loop" in counts["camlidar"]:
+            raise AssertionError(f"phase {sub}{rank}: the fused GN ran under a reduction")
+        ba_err = np.linalg.norm(r["ba_t"] - ba_true, axis=1).max()
+        text.append(f"sharded_refine largest position error {ba_err:.5f} m (from "
+                    f"{np.linalg.norm(np.asarray(ref['ba_init_t']) - ba_true, axis=1).max():.5f}"
+                    f"), {diff(r['ba_t'], ref['ba_t']):.3g} m from JAX's")
+        speed = (f"SLAM {(m - 1) / r['slam_s']:.2f} frames/s ({1e3 * r['slam_s'] / (m - 1):.1f} "
+                 f"ms/frame), cam-lidar {(m - 1) / r['camlidar_s']:.2f} frames/s "
+                 f"({1e3 * r['camlidar_s'] / (m - 1):.1f} ms/frame), BA {1e3 * r['ba_s']:.1f} ms, "
+                 f"peak device memory {float(r['peak_mib']):.1f} MiB")
+        return "; ".join(text), speed, counts
+
+    # ---- 9a: one NCCL rank in this process ----
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, device="cuda")
+        try:
+            nccl = phase9_rank(multihost.global_mesh(), inputs)
+        finally:
+            multihost.shutdown()
+    text, speed, counts = gates("9a", nccl)
+    odo_s, map_s = host_map
+    d_odo = diff(nccl["slam_odometry"], odo_s.positions)
+    d_map = diff(nccl["slam_mapped"], map_s.positions)
+    if not (d_odo <= HOST_MAP_TOL_M[0] and d_map <= HOST_MAP_TOL_M[1]):
+        raise AssertionError(f"phase 9a: the distributed SLAM lies {d_odo} m (odometry) and "
+                             f"{d_map} m (mapped) from FullPipeline(device_map=False).run; limits "
+                             f"{HOST_MAP_TOL_M}")
+    print(f"phase 9a: one NCCL rank, {m} frames: {text}; the distributed SLAM lies {d_odo:.3g} m "
+          f"(odometry) and {d_map:.3g} m (mapped) from FullPipeline(device_map=False).run "
+          f"(limits {HOST_MAP_TOL_M[0]}, {HOST_MAP_TOL_M[1]}); {speed}; launches {counts}",
+          flush=True)
+
+    # ---- 9b: two gloo ranks on the one card, CUDA tensors ----
+    t0 = time.perf_counter()
+    ranks = launch.launch("chip_smoke:phase9_rank", 2, inputs, backend="gloo", device="cuda",
+                          timeout=600)
+    fleet_s = time.perf_counter() - t0
+    for key in ("slam_odometry", "slam_mapped", "camlidar_lidar", "camlidar_mapped",
+                "camlidar_visual", "ba_q", "ba_t"):
+        d = diff(ranks[0][key], ranks[1][key])
+        if not d <= RANKS_AGREE:
+            raise AssertionError(f"phase 9b: the two ranks' {key} differ by {d}")
+    vs_9a = {key: diff(ranks[0][key], nccl[key]) for key in GLOO_VS_NCCL_M}
+    print(f"phase 9b: the ranks' positions lie {vs_9a} m from 9a's (limits {GLOO_VS_NCCL_M})",
+          flush=True)
+    for key, d in vs_9a.items():
+        if not d <= GLOO_VS_NCCL_M[key]:
+            raise AssertionError(f"phase 9b: {key} lies {d} m from 9a's (limit "
+                                 f"{GLOO_VS_NCCL_M[key]})")
+    d_ba = diff(ranks[0]["ba_t"], ref["ba_t"])
+    if not d_ba <= BA_TOL_M:
+        raise AssertionError(f"phase 9b: sharded_refine's positions lie {d_ba} m from JAX's "
+                             f"(limit {BA_TOL_M})")
+    for rank, r in enumerate(ranks):
+        text, speed, counts = gates("9b", r, rank=f" rank {rank}")
+        print(f"phase 9b: rank {rank} of 2 (gloo, CUDA tensors), {m} frames: {text}; {speed}; "
+              f"launches {counts}", flush=True)
+    print(f"phase 9b: the ranks agree within {RANKS_AGREE}; their positions lie within "
+          f"{GLOO_VS_NCCL_M} m of 9a's; sharded_refine {d_ba:.3g} m from JAX's (limit "
+          f"{BA_TOL_M}); the fleet took {fleet_s:.1f} s with its start", flush=True)
+
+
+def phase10_runner(scans, seq):
+    """``scripts/run_kitti_torch.py --mapping --device cuda`` on the corridor's
+    first 17 scans written as a KITTI sequence, against ``FullPipeline``'s
+    same run on the scans in memory (the trajectory file bit for bit), and
+    ``NativeScanReader`` against the scans (bit for bit)."""
+    from lidar_visual_odometry_tpu_torch.data.native_loader import NativeScanReader
+    from lidar_visual_odometry_tpu_torch.eval.metrics import poses_to_matrices
+    from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline
+    from lidar_visual_odometry_tpu_torch.utils.config import kitti_config
+
+    m = SHORT_FRAMES
+    with tempfile.TemporaryDirectory() as root:
+        seq_dir = os.path.join(root, "sequences", "00")
+        os.makedirs(os.path.join(seq_dir, "velodyne"))
+        os.makedirs(os.path.join(root, "poses"))
+        for k in range(m):
+            if scans[k].dtype != np.float32:
+                raise AssertionError(f"phase 10: scan {k} is {scans[k].dtype}, not float32")
+            xyzr = np.concatenate([scans[k][:, :3], np.zeros((len(scans[k]), 1), np.float32)], 1)
+            xyzr.tofile(os.path.join(seq_dir, "velodyne", f"{k:06d}.bin"))
+        np.savetxt(os.path.join(seq_dir, "times.txt"), np.arange(m) * 0.1)
+        eye = " ".join(f"{v:g}" for v in np.eye(3, 4).reshape(-1))
+        with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+            f.write("".join(f"{key}: {eye}\n" for key in ("P0", "P1", "P2", "P3", "Tr")))
+        with open(os.path.join(root, "poses", "00.txt"), "w") as f:
+            for k in range(m):
+                R, t = seq.pose(k)
+                f.write(" ".join(f"{v:.6e}" for v in np.hstack([R, t[:, None]]).reshape(-1))
+                        + "\n")
+
+        pattern = os.path.join(seq_dir, "velodyne", "%06ld.bin")
+        with NativeScanReader(pattern, m) as reader:
+            for k, (xyz, mask, refl) in enumerate(reader):
+                if not (np.array_equal(xyz[mask], scans[k][:, :3]) and not refl.any()):
+                    raise AssertionError(f"phase 10: the native reader's scan {k} differs")
+
+        out = os.path.join(root, "trajectory.txt")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts", "run_kitti_torch.py"), "--root", root,
+             "--sequence", "0", "--mapping", "--device", "cuda", "--out", out],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        runner_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 10: the runner failed:\n{proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(out) as f:
+            got = f.read()
+    _, mapped = FullPipeline(kitti_config(0), device="cuda").run_chunked(
+        scans[:m], chunk=8, map_skip=1, ingest="polar")
+    want = "".join(" ".join(f"{v:.6e}" for v in T[:3].reshape(-1)) + "\n"
+                   for T in poses_to_matrices(mapped.quaternions, mapped.positions))
+    if got != want:
+        raise AssertionError("phase 10: the runner's trajectory differs from FullPipeline's "
+                             "run of the same scans in memory")
+    print(f"phase 10: run_kitti_torch.py --mapping --device cuda on {m} scans written as "
+          f"a KITTI sequence: report {report}; its trajectory file equals "
+          f"FullPipeline(kitti_config(0)).run_chunked on the scans in memory bit for bit; "
+          f"NativeScanReader returned the scans bit for bit; the runner took {runner_s:.1f} s "
+          f"with its start", flush=True)
 
 
 def main() -> int:
@@ -1672,7 +1983,8 @@ def main() -> int:
     print(f"phases 0-6 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 7: the per-frame drivers, the default ingests, resume ----
-    phase7_drivers(scans, images, gt, gt_rel, scans_images_sha, res, (odo, mapped), dev)
+    host_map = phase7_drivers(scans, images, gt, gt_rel, scans_images_sha, res, (odo, mapped),
+                              dev)
     print(f"phases 0-7 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 8: the coupled and mapping cam-lidar modes, IMU fusion ----
@@ -1680,6 +1992,17 @@ def main() -> int:
     phase8_modes(scans, images, seq, gt, gt_rel, mapped, cl, dev)
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s; phases 0-8 took "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 9: the distributed layer, one NCCL rank and two gloo ranks ----
+    t0 = time.perf_counter()
+    phase9_distributed(scans, images, gt, gt_rel, host_map)
+    t9 = time.perf_counter() - t0
+
+    # ---- phase 10: the KITTI runner and the native reader ----
+    t0 = time.perf_counter()
+    phase10_runner(scans, seq)
+    print(f"phase 9 took {t9:.1f} s, phase 10 {time.perf_counter() - t0:.1f} s; phases 0-10 "
+          f"took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for r in results:
         r["launches"] = launches[r["name"]]

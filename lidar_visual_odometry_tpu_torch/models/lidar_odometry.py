@@ -69,9 +69,21 @@ def scan_to_scan_impl(
     prev_less_flat: FeatureCloud,
     init_rel: se3.Pose,
     cfg: OdometryConfig,
+    reduce_fn=None,
 ) -> se3.Pose:
     """Estimate T_last_curr starting from ``init_rel`` (the constant-velocity
-    prior)."""
+    prior).
+
+    ``reduce_fn(H, g) -> (H, g)`` reduces the normal equations across ranks
+    before each solve: the distributed layer shards the current frame's
+    features and all-reduces here (``parallel/sharded_odometry.py``). With a
+    reduction the inner loop is the plain GN loop, as in the JAX package:
+    the fused kernel solves inside itself. A rank's partial sums are then
+    float64 (the rows' float32 products are exact in it) and round to
+    float32 after the reduction, so the solve sees the same bits however the
+    rows are split over ranks, unless a sum lies within float64's rounding
+    of a float32 rounding boundary; the scan-to-map step downstream turns
+    ulp-level pose differences into millimetres."""
     sharp, flat = curr.sharp, curr.flat
     s_sharp = _deskew_s(sharp, cfg.deskew)
     s_flat = _deskew_s(flat, cfg.deskew)
@@ -81,7 +93,8 @@ def scan_to_scan_impl(
     ls_mask = prev_less_sharp.mask.reshape(R, -1)
     lf_blocks = prev_less_flat.xyz.reshape(R, -1, 3)
     lf_mask = prev_less_flat.mask.reshape(R, -1)
-    fused = not cfg.deskew
+    fused = not cfg.deskew and reduce_fn is None
+    acc = torch.float32 if reduce_fn is None else torch.float64
     if fused:
         edge_p, plane_p = _rows(sharp.xyz), _rows(flat.xyz)
 
@@ -113,9 +126,12 @@ def scan_to_scan_impl(
             rp, Jp = lf.plane_residuals(pose, plane)
             we = gn.huber_weight(torch.linalg.vector_norm(re, dim=-1), cfg.huber_delta)
             wp = gn.huber_weight(rp[..., 0].abs(), cfg.huber_delta)
-            He, ge = gn.accumulate(re, Je, we, edge.mask)
-            Hp, gp = gn.accumulate(rp, Jp, wp, plane.mask)
-            pose = gn.gn_update_pose(pose, gn.solve_damped(He + Hp, ge + gp))
+            He, ge = gn.accumulate(re.to(acc), Je.to(acc), we, edge.mask)
+            Hp, gp = gn.accumulate(rp.to(acc), Jp.to(acc), wp, plane.mask)
+            H, g = He + Hp, ge + gp
+            if reduce_fn is not None:
+                H, g = (x.to(torch.float32) for x in reduce_fn(H, g))
+            pose = gn.gn_update_pose(pose, gn.solve_damped(H, g))
         return pose
 
     pose = init_rel

@@ -21,7 +21,8 @@ The kernel formulations bake masked candidates to ``BAKE_FAR``, so a masked
 slot reads its distance (~3e12) where the matrix-product forms read 1e30; the
 gates reject both. B is taken as it is (the TPU path pads it to 128 lanes).
 Off the odometry path only tests and ``chip_smoke.py`` call the ring-blocked
-and dense forms. ``knn`` is the dense k-NN of the visual depth association.
+and dense forms. ``knn`` is the dense k-NN of the visual depth association
+and, streamed in column blocks (``chunk``), of the sharded scan-to-map step.
 """
 
 from __future__ import annotations
@@ -57,19 +58,58 @@ def masked_argmin(d: torch.Tensor, extra_mask: torch.Tensor | None = None):
     return idx, d.gather(-1, idx[:, None])[:, 0]
 
 
+def sqdist_by_axis(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(Q, 3) × (C, 3) → (Q, C) squared distances (qx−cx)² + (qy−cy)² +
+    (qz−cz)², one elementwise operation at a time: each pair's value is the
+    same bits whatever the shapes around it (a matrix product's rounding may
+    depend on them)."""
+    d = (q[:, None, 0] - c[None, :, 0]).square()
+    d = d + (q[:, None, 1] - c[None, :, 1]).square()
+    return d + (q[:, None, 2] - c[None, :, 2]).square()
+
+
+def _smallest_k(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(positions, values) of the k smallest entries of each row of the
+    non-negative ``d``, ascending, the lower position first among equal
+    values (as ``lax.top_k``), in one ``topk``: each entry's key is its
+    float32 bits (monotonic for values ≥ +0) over its position, so the keys
+    are unique and order by (value, position)."""
+    bits = (d + 0.0).view(torch.int32).to(torch.int64)      # −0 → +0
+    pos = torch.arange(d.shape[1], device=d.device)
+    keys = torch.topk((bits << 32) | pos, k, dim=1, largest=False, sorted=True).values
+    sel = keys & 0xFFFFFFFF
+    return sel, d.gather(1, sel)
+
+
 def knn(q_xyz: torch.Tensor, c_xyz: torch.Tensor, c_mask: torch.Tensor,
-        k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        k: int, *, chunk: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense k-NN: (Q, k) indices and squared distances, ascending, the lower
-    index first among equal distances (as ``lax.top_k``): k arg-min sweeps
-    over the distance matrix, each taking the first minimum."""
-    d = pairwise_sqdist(q_xyz, c_xyz, c_mask)
-    idx, dist = [], []
-    for _ in range(k):
-        i = torch.argmin(d, dim=1, keepdim=True)
-        dist.append(d.gather(1, i))
-        idx.append(i)
-        d.scatter_(1, i, float("inf"))
-    return torch.cat(idx, dim=1), torch.cat(dist, dim=1)
+    index first among equal distances (as ``lax.top_k``).
+
+    ``chunk`` streams the candidates in blocks of ``chunk`` columns with a
+    running top-k (peak memory Q × chunk, not Q × C), as the JAX package's
+    does. Its running set starts as k slots of index 0 at distance 1e30 and
+    comes first in every merge, so a masked candidate (at 1e30) never enters
+    it: the result is the unmasked candidates' k best by (distance, index),
+    padded with (index 0, 1e30), whatever the blocks. So only the unmasked
+    candidates are searched, compacted in index order (one read of their
+    count). The streamed distances are ``sqdist_by_axis``'s, so a pair's
+    distance does not depend on the block it lands in: the sharded
+    scan-to-map step's merge of the ranks' blocks then finds what one rank
+    finds over the whole map."""
+    if chunk is None or chunk >= c_xyz.shape[0]:
+        return _smallest_k(pairwise_sqdist(q_xyz, c_xyz, c_mask), k)
+    Q = q_xyz.shape[0]
+    valid = torch.nonzero(c_mask).squeeze(1)
+    cands = c_xyz[valid]
+    best_d = torch.full((Q, k), _BIG, dtype=q_xyz.dtype, device=q_xyz.device)
+    best_i = torch.zeros((Q, k), dtype=torch.int64, device=q_xyz.device)
+    for base in range(0, valid.shape[0], chunk):
+        d = torch.cat([best_d, sqdist_by_axis(q_xyz, cands[base:base + chunk])], dim=1)
+        all_i = torch.cat([best_i, valid[base:base + chunk].expand(Q, -1)], dim=1)
+        sel, best_d = _smallest_k(d, k)
+        best_i = all_i.gather(1, sel)
+    return best_i, best_d
 
 
 class EdgeAssoc(NamedTuple):

@@ -2,9 +2,10 @@
 (``models/imu_fusion.py``) against the JAX package on the CPU: midpoint
 preintegration, gravity alignment, the factor residuals, the window solve
 (its Jacobian at δx = 0, its steps, its guard against a matrix that is not
-positive definite), the fusion core on the degraded-odometry sequence of
-``tests/test_imu_fusion.py`` and the whole driver on small scans with and
-without derotation.
+positive definite) and the fusion core on the degraded-odometry sequence of
+``tests/test_imu_fusion.py``. The whole driver on small scans is in
+``tests/test_torch_imu_driver.py`` (a file of its own, so that its JAX
+compilations run on another worker).
 
 Tolerances: the residual stack is the same float32 operations, a few ulps
 apart (XLA's CPU code contracts multiply-adds under jit and takes sin, cos
@@ -14,7 +15,7 @@ after a solve; the fused trajectories stay within 1e-3 m of JAX's over 40
 frames (the rounding of each window solve carries into the next window's
 anchor, 6.4e-4 m at most on this sequence).
 
-Every JAX window solve of the file but the driver's has eight states, six
+Every JAX window solve of the file has eight states, six
 iterations and the fuser's keyword arguments (``SOLVE``), so that one
 compilation serves them all."""
 
@@ -30,11 +31,9 @@ from lidar_visual_odometry_tpu.models import backend as jb
 from lidar_visual_odometry_tpu.models import imu_fusion as jif
 from lidar_visual_odometry_tpu.models.imu_fusion import ImuFusedOdometry as JaxFuser
 from lidar_visual_odometry_tpu.ops import se3 as jse3
-from lidar_visual_odometry_tpu.utils import config as jcfg
 from lidar_visual_odometry_tpu_torch.models import backend as tb
 from lidar_visual_odometry_tpu_torch.models.imu_fusion import ImuFusedOdometry
 from lidar_visual_odometry_tpu_torch.ops import se3 as tse3
-from lidar_visual_odometry_tpu_torch.utils import config as tcfg
 from test_backend import simulate_imu
 
 torch.set_num_threads(2)
@@ -281,38 +280,3 @@ def test_process_pose_matches_jax_on_degraded_odometry(rng, jax_preintegrate_jit
         return np.sqrt(np.mean(np.sum((p - gt) ** 2, -1)))
 
     assert ate(fused_t) < 0.8 * ate(raw), (ate(raw), ate(fused_t))
-
-
-@pytest.fixture(scope="module")
-def small_scans():
-    n = 5
-    seq = jsyn.SyntheticSequence(n_frames=n, width=400, noise=0.01, yaw_rate=0.01,
-                                 roll_amp=0.02)
-    return seq, [seq.scan(k) for k in range(n)], _bundles(seq, n)
-
-
-@pytest.mark.parametrize("derotate", [False, True])
-def test_process_matches_jax(small_scans, derotate, jax_preintegrate_jitted):
-    """The whole driver on five frames at 512 azimuth bins (registration,
-    the gyro warm start, odometry, two solves of a four-state window), with and without
-    derotating each scan by the dead-reckoned IMU orientation: the port's
-    fused positions within 1e-3 m of JAX's (the odometry's float32 rounding,
-    as tests/test_torch_odometry.py), finite, and near the truth."""
-    seq, scans, bundles = small_scans
-
-    def cfg(m):
-        return m.SystemConfig(lidar=m.LidarConfig(azimuth_bins=512),
-                              odometry=m.OdometryConfig(outer_iters=3, gn_iters=4))
-
-    kw = dict(window=4, imu_weight=1.0, odom_weight=50.0, n_iters=ITERS, derotate=derotate,
-              capacity=32768)
-    jfuser = JaxFuser(cfg(jcfg), **kw)
-    tfuser = ImuFusedOdometry(cfg(tcfg), **kw, device="cpu")
-    want = np.stack([np.asarray(jfuser.process(s, *b).t) for s, b in zip(scans, bundles)])
-    got = np.stack([tfuser.process(s, *b).t.numpy() for s, b in zip(scans, bundles)])
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, atol=1e-3)
-    np.testing.assert_allclose(tfuser._q_imu, jfuser._q_imu, atol=1e-6)
-    R0, t0 = seq.pose(0)
-    truth = np.stack([R0.T @ (seq.pose(k)[1] - t0) for k in range(len(scans))])
-    assert np.sqrt(np.mean(np.sum((got - truth) ** 2, -1))) < 0.12

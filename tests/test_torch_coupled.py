@@ -16,6 +16,8 @@ tests/test_torch_camlidar.py); from raw scans ``run_chunked`` packs the
 polar images with the port's packer where the JAX package uses its native
 one, within the same tolerances."""
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -121,16 +123,36 @@ def assert_close(got: dict, want: dict, lidar_tol=LIDAR_TOL_M, map_tol=5e-3):
 
 
 @pytest.fixture(scope="module")
-def jax_coupled(seq_data):
+def coupled_runs(seq_data, tmp_path_factory):
     """The JAX package's coupled run and the first chunk's inputs, in one
-    interpret-mode routing."""
+    interpret-mode routing, and beside them in a worker thread the port's
+    coupled ``run_chunked``: uninterrupted, stopped after frame 2 (a
+    checkpoint in ``path``) and resumed."""
     _, scans, images = seq_data
+    path = str(tmp_path_factory.mktemp("coupled") / "coupled.npz")
+
+    def port_runs():
+        pipe = port_pipe()
+        kw = dict(chunk=CHUNK, ingest="polar2", coupled=True)
+        full = outputs(pipe.run_chunked(scans, images, **kw))
+        kw.update(checkpoint_path=path)
+        stopped = outputs(pipe.run_chunked(scans, images, checkpoint_every=2, stop_after=2, **kw))
+        resumed = outputs(pipe.run_chunked(scans, images, resume=True, **kw))
+        return dict(full=full, stopped=stopped, resumed=resumed, path=path)
+
     cfg = config(jcfg)
-    with lk_through_pallas_interpret():
+    with ThreadPoolExecutor(1) as ex, lk_through_pallas_interpret():
+        port = ex.submit(port_runs)
         inputs = chunk_inputs(scans, images, cfg)
         res = jcl.CamLidarPipeline(cfg).run_chunked(scans, images, chunk=CHUNK, ingest="polar2",
                                                      coupled=True)
-    return inputs, outputs(res)
+        return inputs, outputs(res), port.result()
+
+
+@pytest.fixture(scope="module")
+def jax_coupled(coupled_runs):
+    """The first chunk's inputs and the JAX package's coupled run."""
+    return coupled_runs[:2]
 
 
 # ---- the gate ----------------------------------------------------------------------
@@ -201,30 +223,25 @@ def test_coupled_chunk_matches_jax(jax_coupled):
     torch.testing.assert_close(vis.pose_w.t, visual.t[-1], rtol=0, atol=0)
 
 
-def test_run_chunked_coupled_matches_jax(seq_data, jax_coupled, tmp_path):
+def test_run_chunked_coupled_matches_jax(seq_data, coupled_runs):
     """``run_chunked(coupled=True)`` from the raw scans: the JAX run's
     trajectories; the car moves 1 m a frame, so the coupled lidar poses land
     near the truth. Stopped after frame 2 and resumed, it equals the
     uninterrupted run bit for bit; its checkpoint cannot resume a mapping
     run (it carries no map state)."""
     seq, scans, images = seq_data
-    _, want = jax_coupled
-    pipe = port_pipe()
-    res = outputs(pipe.run_chunked(scans, images, chunk=CHUNK, ingest="polar2", coupled=True))
+    _, want, port = coupled_runs
+    res = port["full"]
     assert_close(res, want)
     R0, t0 = seq.pose(0)
     gt = np.stack([R0.T @ (seq.pose(k)[1] - t0) for k in range(N_FRAMES)])
     assert np.abs(res["lidar_positions"] - gt).max() < 0.05
-
-    path = str(tmp_path / "coupled.npz")
-    kw = dict(chunk=CHUNK, ingest="polar2", coupled=True, checkpoint_path=path)
-    stopped = outputs(pipe.run_chunked(scans, images, checkpoint_every=2, stop_after=2, **kw))
-    resumed = outputs(pipe.run_chunked(scans, images, resume=True, **kw))
     for name in res:
-        np.testing.assert_array_equal(stopped[name], res[name][:3])
-        np.testing.assert_array_equal(resumed[name], res[name])
+        np.testing.assert_array_equal(port["stopped"][name], res[name][:3])
+        np.testing.assert_array_equal(port["resumed"][name], res[name])
     with pytest.raises(ValueError, match="no map state"):
-        pipe.run_chunked(scans, images, resume=True, mapping=True, **kw)
+        port_pipe().run_chunked(scans, images, chunk=CHUNK, ingest="polar2", coupled=True,
+                                checkpoint_path=port["path"], resume=True, mapping=True)
 
 
 @pytest.mark.parametrize("kw", [dict(coupled=True), dict(mapping=True),

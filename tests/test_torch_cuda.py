@@ -1033,3 +1033,56 @@ def test_solve_window_on_the_card_matches_the_cpu(dev, gen):
     for a, b in zip(out["cpu"], out[str(dev)]):
         assert b.is_cuda and torch.isfinite(b).all()
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4)
+
+
+def test_gloo_fleet_on_the_card(dev):
+    """Two gloo ranks on the one card with CUDA tensors (NCCL refuses two
+    ranks on one GPU), started by ``parallel.launch``: the distributed SLAM
+    driver on ``tests/test_parallel.py``'s 4-frame sequence. The ranks agree
+    within 1e-6 and lie within 5e-4 m (odometry) and 5e-3 m (mapped) of
+    ``FullPipeline(device_map=False).run`` on the card (``test_parallel.py``'s
+    bounds)."""
+    import os
+
+    import _torch_mp_worker as W
+    from lidar_visual_odometry_tpu_torch.data import synthetic
+    from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline
+    from lidar_visual_odometry_tpu_torch.parallel import launch
+
+    seq = synthetic.SyntheticSequence(n_frames=4, width=900, noise=0.005)
+    scans = [seq.scan(k) for k in range(4)]
+    ranks = launch.launch("_torch_mp_worker:slam", 2,
+                          {"n": np.int64(4), **{f"scan{k}": s for k, s in enumerate(scans)}},
+                          backend="gloo", device="cuda",
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    for key in ("odom", "mapped"):
+        np.testing.assert_allclose(ranks[0][key], ranks[1][key], atol=1e-6, err_msg=key)
+    odo, mapped = FullPipeline(W.SLAM_CFG, capacity=W.SLAM_CAPACITY, device_map=False,
+                               device=dev).run(scans)
+    np.testing.assert_allclose(ranks[0]["odom"], odo.positions, atol=5e-4)
+    np.testing.assert_allclose(ranks[0]["mapped"], mapped.positions, atol=5e-3)
+
+
+def test_chunked_knn_distances_do_not_depend_on_the_blocks(dev, gen):
+    """The sharded scan-to-map step's search on the card at its shapes (8192
+    surf queries, a 32768-point submap, 2048-column chunks): a pair's
+    distance is the same bits whatever the block around it, so the k best of
+    two rank blocks, merged by (distance, block, slot), are the k best of the
+    whole submap, and another chunk width gives the same bits."""
+    from lidar_visual_odometry_tpu_torch.ops import knn
+
+    q, c = _on(dev, gen.normal(0, 20, (8192, 3)).astype(np.float32),
+               gen.normal(0, 20, (32768, 3)).astype(np.float32))
+    (mask,) = _on(dev, gen.uniform(size=32768) < 0.7)
+    want_i, want_d = knn.knn(q, c, mask, 5, chunk=2048)
+    got_i, got_d = knn.knn(q, c, mask, 5, chunk=1000)
+    assert torch.equal(got_d, want_d) and torch.equal(got_i, want_i)
+    parts = []
+    for b in range(2):
+        i, d = knn.knn(q, c[b * 16384:(b + 1) * 16384], mask[b * 16384:(b + 1) * 16384], 5,
+                       chunk=2048)
+        parts.append(torch.stack([d, (i + b * 16384).to(torch.float32)], -1))
+    cand = torch.stack(parts, 1).reshape(8192, 10, 2)
+    sel, merged_d = knn._smallest_k(cand[..., 0], 5)
+    assert torch.equal(merged_d, want_d)
+    assert torch.equal(cand[..., 1].gather(1, sel).to(torch.int64), want_i)

@@ -2,6 +2,7 @@
 odometry step from a carried state, the whole chunked polar2 pipeline, the
 import boundary and the device rule."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -136,13 +137,20 @@ def test_run_chunked_ragged_chunk_and_polar(seq_scans):
 def test_port_imports_no_jax():
     """The port imports torch and numpy only: no jax, nothing of the JAX
     package, with every module imported, the k-NN entry points of kernels
-    K7, K8 and K5p, the direct VO modules, the IMU back-end and the coupled
-    and mapping cam-lidar chunks among them."""
+    K7, K8 and K5p, the direct VO modules, the IMU back-end, the coupled
+    and mapping cam-lidar chunks and the distributed layer among them, and
+    with the KITTI runner ``scripts/run_kitti_torch.py`` and the fleet
+    tests' rank module ``tests/_torch_mp_worker.py`` loaded; neither of
+    those two names jax or the JAX package in any import statement."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "import lidar_visual_odometry_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_mp_worker\n"
+        "spec = importlib.util.spec_from_file_location('runner', 'scripts/run_kitti_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "       or m == 'lidar_visual_odometry_tpu'\n"
@@ -165,12 +173,28 @@ def test_port_imports_no_jax():
         "from lidar_visual_odometry_tpu_torch.models import cam_lidar_pipeline as cl\n"
         "assert all(callable(f) for f in (backend.solve_window, imu_fusion.ImuFusedOdometry,\n"
         "                                 cl.camlidar_coupled_chunk, cl.camlidar_slam_chunk))\n"
+        "from lidar_visual_odometry_tpu_torch.parallel import (distributed_camlidar as dc,\n"
+        "    distributed_pipeline as dp, launch, multihost, sharded_ba, sharded_mapping,\n"
+        "    sharded_odometry, sharded_visual)\n"
+        "assert all(callable(f) for f in (dc.DistributedCamLidarPipeline,\n"
+        "    dp.DistributedSlamPipeline, launch.launch, multihost.initialize,\n"
+        "    sharded_ba.sharded_refine, sharded_mapping.sharded_mapping_step,\n"
+        "    sharded_odometry.sharded_scan_to_scan, sharded_visual.sharded_visual_step))\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+    for path in ("scripts/run_kitti_torch.py", "tests/_torch_mp_worker.py"):
+        with open(os.path.join(REPO, path)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "lidar_visual_odometry_tpu"), (path, name)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -135,6 +135,31 @@ Phase 10 writes the first 17 scans as a KITTI sequence (``.bin``,
          demands its trajectory file equal, bit for bit, the same
          ``FullPipeline.run_chunked`` on the scans in memory, and
          ``NativeScanReader`` return the scans bit for bit.
+Phase 11 renders three of ``scripts/eval_regimes_torch.py``'s regimes at full
+         width (``rotation_heavy``, 41 frames; ``revisit_out_and_back``, 45;
+         ``high_noise``, 30; images for the first two) and holds them against
+         ``tools/jax_reference_regimes.json`` (from
+         ``tools/jax_reference_regimes.py``; the inputs must hash alike). It
+         prints each regime's native-packed images' sha256 beside the JAX
+         packer's (not gated: ``-march=native`` may round otherwise on
+         another CPU); on the corridor's frames 1-8 it counts the cells
+         where the native and the numpy packer differ (failing above 0.05%
+         of the range cells) and times both in alternating rounds. On each
+         regime ``FullPipeline(SystemConfig()).run_chunked(scans, chunk=8,
+         map_skip=1, ingest="polar2")``: odometry and mapped ATE (no
+         alignment, as the eval script) each within 0.01 m of the JAX
+         run's; on the first two ``CamLidarPipeline(camlidar_config())
+         .run_chunked(scans, images, chunk=8, ingest="polar")``, whose
+         ``ate_visual`` is printed beside JAX's and not gated (the camera
+         drifts metres on these regimes, and one track's rounding moves
+         that by centimetres). K1-K4 and K6 launched, K6 four times a
+         tracked frame. The camera gate: from each JAX visual state of
+         ``tools/jax_reference_regime_steps.npz`` (every fourth frame of the
+         two regimes, from ``tools/camera_step_diff.py --write-steps``) one
+         port step (``visual_frontend.chunk_frame_step``) on the frame's
+         image and natively packed scan lies within 2e-3 m and 1e-4 rad of
+         the step JAX took from it, plus how far JAX's own step moved when
+         the state was nudged by one ulp.
 
 Prints one JSON line with all ten kernels' numbers, K7's two output forms in
 two rows (launches counted on the
@@ -198,6 +223,16 @@ MODES_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # tools/jax_reference_parallel.py: phase 9's gates.
 PARALLEL_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tools", "jax_reference_parallel.json")
+# The JAX package on three of scripts/eval_regimes.py's regimes (the bench's
+# SLAM call on each, the eval script's plain visual call on the first two),
+# run on the CPU by tools/jax_reference_regimes.py: phase 11's gates.
+REGIMES_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tools", "jax_reference_regimes.json")
+# The JAX visual frontend's carried state at every fourth frame of phase 11's
+# two camera regimes and the step it takes from each, written on the CPU by
+# tools/camera_step_diff.py --write-steps: phase 11's camera gate.
+REGIME_STEPS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tools", "jax_reference_regime_steps.npz")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATE_MARGIN = 0.01
 SHORT_FRAMES = 17     # phase 7: the per-frame SLAM and the camera runs
@@ -230,6 +265,21 @@ GLOO_VS_NCCL_M = {"slam_odometry": 2e-3, "camlidar_lidar": 2e-3, "slam_mapped": 
                   "camlidar_mapped": 2e-3}
 BA_TOL_M = 1e-3
 HOST_MAP_TOL_M = (5e-4, 5e-3)
+
+# phase 11: the native and the numpy packer on the corridor's frames 1-8 may
+# differ in at most this share of range cells (0.0065% measured, ROADMAP A.13)
+PACKER_DIFF_SHARE = 5e-4
+PACKER_FRAMES = slice(1, 9)
+# phase 11's camera gate: from each JAX state of REGIME_STEPS the port's step
+# lies within STEP_TOL_M (translation, largest axis) and STEP_TOL_RAD
+# (rotation) of the JAX step, plus how far JAX's own step moved when the
+# state was nudged by one ulp (5 cm at the revisit's frame 18, where the step
+# has two answers). The port's CPU steps lie within 3.7e-4 m and 1.6e-5 rad
+# elsewhere (tools/camera_step_diff.py). A trajectory cannot be gated: one
+# track's rounding parts two runs by centimetres within a few frames
+# (PERF.md §6, PR 14), and the camera drifts metres on these regimes.
+STEP_TOL_M = 2e-3
+STEP_TOL_RAD = 1e-4
 
 N_FRAMES = 49
 SEED = 0
@@ -1743,6 +1793,276 @@ def phase10_runner(scans, seq):
           f"with its start", flush=True)
 
 
+def _eval_regimes_script():
+    """``scripts/eval_regimes_torch.py`` as a module: its regimes and ground truth."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "eval_regimes_torch", os.path.join(ROOT, "scripts", "eval_regimes_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quat_angle(q1, q2) -> float:
+    """Angle in radians between two rotations given as (w, x, y, z)
+    quaternions, from the vector part of conj(q1) q2 (accurate near 0)."""
+    a = np.asarray(q1, np.float64)
+    b = np.asarray(q2, np.float64)
+    w = a[0] * b[0] + a[1:] @ b[1:]
+    v = a[0] * b[1:] - b[0] * a[1:] - np.cross(a[1:], b[1:])
+    return float(2.0 * np.arctan2(np.linalg.norm(v), abs(w)))
+
+
+def regime_camera_steps(inputs, dev, path=REGIME_STEPS):
+    """One step of the port's visual frontend (``chunk_frame_step``) from each
+    JAX state in ``path``, on the same frame's image and natively packed scan,
+    against the step JAX took from that state. The state's pyramid and depth
+    cloud are the port's own, from the previous frame. Returns a row a state:
+    regime, frame, the tracked counts, and the translation (m) and rotation
+    (rad) differences, and how far JAX's own step moved when its state was
+    nudged by one ulp (``jax_spread_*``)."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.data import native_pack
+    from lidar_visual_odometry_tpu_torch.models import visual_frontend as vf
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import (
+        CamLidarPipeline, _to_uint8, cam_clouds_from_polar,
+    )
+    from lidar_visual_odometry_tpu_torch.ops import image, se3
+    from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+
+    cfg = camlidar_config()
+    vcfg, lcfg = cfg.visual, cfg.lidar
+    pipe = CamLidarPipeline(cfg, device=dev)
+    R_cl = torch.from_numpy(pipe.R_cl).to(dev)
+    t_cl = torch.from_numpy(pipe.t_cl.copy()).to(dev)
+    ref = np.load(path)
+    rows = []
+    for name, (scans, images) in inputs.items():
+        if f"{name}:frames" not in ref:
+            continue
+        frames = [int(k) for k in ref[f"{name}:frames"]]
+        need = sorted({j for k in frames for j in (k - 1, k)})
+        at = {j: i for i, j in enumerate(need)}
+        packed = native_pack.pack_polar_chunk(
+            [scans[j] for j in need], n_scans=lcfg.n_scans, width=lcfg.azimuth_bins,
+            min_range=lcfg.min_range, max_range=lcfg.max_range, channels=2)
+        clouds, masks = cam_clouds_from_polar(pc.polar_image_to_tensor(packed, dev), R_cl, t_cl,
+                                              lcfg, vcfg.depth_cloud_cap)
+        for k in frames:
+            key = f"{name}:{k}:"
+
+            def leaf(i, dtype=torch.float32):
+                return torch.tensor(ref[f"{key}vchunk_{i}"], dtype=dtype, device=dev)
+
+            img = torch.from_numpy(_to_uint8(images[k - 1])).to(dev).to(torch.float32) * (
+                1.0 / 255.0)
+            if vcfg.use_clahe:
+                img = image.clahe(img, grid=vcfg.clahe_grid, clip_limit=vcfg.clahe_clip)
+            table = vf.FeatureTable(
+                uv=leaf(0), active=leaf(1, torch.bool), depth=leaf(2), start_un=leaf(3),
+                start_q=leaf(4), start_t=leaf(5), age=leaf(6, torch.int32), flow=leaf(7))
+            state = vf.VisualChunkState(
+                table, se3.Pose(leaf(8), leaf(9)), se3.Pose(leaf(10), leaf(11)),
+                tuple(image.build_pyramid(img, vcfg.lk_levels)),
+                vf.build_depth_cloud(clouds[at[k - 1]], masks[at[k - 1]]))
+            _, rel, n = vf.chunk_frame_step(
+                state, torch.from_numpy(_to_uint8(images[k])).to(dev), clouds[at[k]],
+                masks[at[k]], pipe.cam, vcfg)
+            jq, jt = ref[f"{key}rel_q"], ref[f"{key}rel_t"]
+            rows.append({
+                "regime": name, "frame": k, "tracked": int(n),
+                "jax_tracked": int(ref[f"{key}tracked"]),
+                "dt_m": float(np.abs(rel.t.cpu().numpy() - jt).max()),
+                "dr_rad": _quat_angle(rel.q.cpu().numpy(), jq),
+                "jax_spread_m": max(float(np.abs(t - jt).max())
+                                    for t in ref[f"{key}nudged_rel_t"]),
+                "jax_spread_rad": max(_quat_angle(q, jq) for q in ref[f"{key}nudged_rel_q"]),
+            })
+    return rows
+
+
+def phase11_regimes(corridor_scans, dev):
+    """Three of the eval script's regimes at full width against
+    ``tools/jax_reference_regimes.json``, and the two packers side by side.
+    Raises on a failed gate; prints a line a step. Returns the phase's seconds."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch import kernels
+    from lidar_visual_odometry_tpu_torch.data import native_pack
+    from lidar_visual_odometry_tpu_torch.eval import metrics
+    from lidar_visual_odometry_tpu_torch.models.cam_lidar_pipeline import CamLidarPipeline
+    from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline
+    from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
+    from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config
+    from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
+
+    t_phase = time.perf_counter()
+    with open(REGIMES_REFERENCE) as f:
+        ref = json.load(f)
+    script = _eval_regimes_script()
+    seqs = {name: seq for name, seq in script.build_regimes(0, ref["width"]).items()
+            if name in ref["regimes"]}
+    visual = script.VISUAL_REGIMES
+    lcfg = SystemConfig().lidar
+    geom = dict(n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
+                max_range=lcfg.max_range)
+
+    # the regimes' scans and images, rendered in threads (one BLAS thread)
+    t0 = time.perf_counter()
+    inputs = {}
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        for name, seq in seqs.items():
+            scans = list(ex.map(seq.scan, range(seq.n_frames)))
+            images = (list(ex.map(partial(script.render_camera, seq), range(seq.n_frames)))
+                      if name in visual else [])
+            _check_inputs(f"11 ({name})", ref["regimes"][name], _sha256((*scans, *images)))
+            inputs[name] = scans, images
+    render_s = time.perf_counter() - t0
+    hashes = []
+    for name, (scans, _) in inputs.items():
+        got = _sha256((native_pack.pack_polar_chunk(scans, channels=1, **geom),
+                       native_pack.pack_polar_chunk(scans, channels=2, **geom)))
+        want = ref["regimes"][name]["packed_sha256"]
+        hashes.append(f"{name} {got[:16]} ({'the same' if got == want else 'differs'}; JAX "
+                      f"{want[:16]})")
+    print(f"phase 11: rendered {sum(len(s) for s, _ in inputs.values())} scans and "
+          f"{sum(len(i) for _, i in inputs.values())} images of {len(inputs)} regimes in "
+          f"{render_s:.1f} s, inputs hash as the reference's; the native packer's images "
+          f"(polar2, then polar) sha256: {'; '.join(hashes)} (reported, not gated: "
+          f"-march=native may round otherwise on another CPU)", flush=True)
+
+    # the two packers on the corridor's frames 1-8
+    batch = corridor_scans[PACKER_FRAMES]
+    native = native_pack.pack_polar_chunk(batch, **geom)
+    plain = pc.pack_polar_chunk(batch, **geom)
+    cells = native[..., 0].size
+    n_range = int((native[..., 0] != plain[..., 0]).sum())
+    n_filled = int(((native[..., 0] > 0) != (plain[..., 0] > 0)).sum())
+    n_offsets = int((native[..., 1] != plain[..., 1]).sum())
+    times = {"native": [], "numpy": []}
+    for _ in range(5):
+        for key, fn in (("native", native_pack.pack_polar_chunk),
+                        ("numpy", pc.pack_polar_chunk)):
+            t0 = time.perf_counter()
+            fn(batch, channels=1, **geom)
+            times[key].append((time.perf_counter() - t0) * 1e3 / len(batch))
+    ms = {key: float(np.median(t)) for key, t in times.items()}
+    print(f"phase 11: packers on the corridor's frames 1-8 ({cells} range cells): "
+          f"{n_range} range cells differ ({100 * n_range / cells:.4f}%, limit "
+          f"{100 * PACKER_DIFF_SHARE}%), {n_filled} filled in one packer and empty in the "
+          f"other, {n_offsets} offset cells differ; polar2 pack of 8 frames, median of 5 "
+          f"alternating rounds: native {ms['native']:.3f} ms/frame, numpy "
+          f"{ms['numpy']:.3f} ms/frame", flush=True)
+    if not n_range <= PACKER_DIFF_SHARE * cells:
+        raise AssertionError(f"phase 11: the packers' range planes differ in {n_range} of "
+                             f"{cells} cells")
+
+    # (a) the bench's SLAM call on each regime, (b) the plain visual call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ates_visual, jax_visual, frames = [], [], 0
+    t_runs = time.perf_counter()
+    for name, (scans, images) in inputs.items():
+        want = ref["regimes"][name]
+        seq = seqs[name]
+        gt = script.ground_truth(seq)
+        t0 = time.perf_counter()
+        odo, mapped = FullPipeline(SystemConfig(), device=dev).run_chunked(
+            scans, chunk=8, map_skip=1, ingest="polar2")
+        wall = time.perf_counter() - t0
+        frames += len(scans) - 1
+        line = []
+        for key, res in (("odometry", odo), ("mapped", mapped)):
+            pos = res.positions
+            if pos.shape != gt.shape or not np.isfinite(pos).all():
+                raise AssertionError(f"phase 11 ({name}): bad {key} trajectory {pos.shape}")
+            ate = metrics.ate_rmse(pos, gt, align=False)
+            jax = want[f"{key}_ate_m"]
+            diff = float(np.abs(pos - np.asarray(want[f"{key}_positions"])).max())
+            line.append(f"{key} ATE {ate:.5f} m (JAX CPU {jax:.5f} + {ATE_MARGIN}, largest "
+                        f"position difference {diff:.5f} m)")
+            if not ate <= jax + ATE_MARGIN:
+                raise AssertionError(f"phase 11 ({name}): {key} ATE {ate} m exceeds the JAX "
+                                     f"reference {jax} + {ATE_MARGIN}")
+        print(f"phase 11: {name}, SLAM polar2, {len(scans)} frames: {'; '.join(line)}; "
+              f"{(len(scans) - 1) / wall:.2f} frames/s", flush=True)
+        if name not in visual:
+            continue
+        t0 = time.perf_counter()
+        cl = CamLidarPipeline(camlidar_config(), device=dev).run_chunked(
+            scans, images, chunk=8, ingest="polar")
+        wall = time.perf_counter() - t0
+        frames += len(scans) - 1
+        if cl.visual_positions.shape != gt.shape or not np.isfinite(cl.visual_positions).all():
+            raise AssertionError(f"phase 11 ({name}): bad visual trajectory")
+        ate_v = metrics.ate_rmse(cl.visual_positions, gt, align=False)
+        ate_l = metrics.ate_rmse(cl.lidar_positions, gt, align=False)
+        ates_visual.append(ate_v)
+        jax_visual.append(want["ate_visual_m"])
+        diff = float(np.abs(cl.visual_positions - np.asarray(want["visual_positions"])).max())
+        print(f"phase 11: {name}, cam-lidar polar, {len(scans)} frames: ate_visual "
+              f"{ate_v:.5f} m (JAX CPU {want['ate_visual_m']:.5f}), ate_lidar {ate_l:.5f} m "
+              f"(JAX CPU {want['ate_lidar_m']:.5f}), largest visual-position difference "
+              f"{diff:.5f} m; {(len(scans) - 1) / wall:.2f} frames/s", flush=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    runs_s = time.perf_counter() - t_runs
+    mean_v, mean_jax = float(np.mean(ates_visual)), float(np.mean(jax_visual))
+    print(f"phase 11: mean ate_visual over {', '.join(visual)} {mean_v:.5f} m (JAX CPU "
+          f"{mean_jax:.5f} m; reported, not gated: the camera drifts metres here and one "
+          f"track's rounding moves that by centimetres); {frames} frames run in "
+          f"{runs_s:.1f} s; launches {counts}", flush=True)
+    path = ("segment_sum_batched", "associate_kernel", "gn_inner_loop", "segment_sum",
+            "block_topk_windowed", "lk_level")
+    if min(counts[name] for name in path) == 0:
+        raise AssertionError(f"phase 11: a kernel of the path was never launched: {counts}")
+    tracked = sum(len(inputs[name][0]) - 1 for name in visual)
+    if counts["lk_level"] != 4 * tracked:
+        raise AssertionError(f"phase 11: expected 4 lk_level launches a tracked frame: "
+                             f"{counts['lk_level']} over {tracked}")
+
+    # the camera gate: one step of the port from each of JAX's carried states
+    t0 = time.perf_counter()
+    rows = regime_camera_steps({name: inputs[name] for name in visual}, dev)
+    torch.cuda.synchronize()
+    for name in visual:
+        mine = [r for r in rows if r["regime"] == name]
+        dts = ", ".join(f"{r['dt_m']:.3g}" for r in mine)
+        drs = ", ".join(f"{r['dr_rad']:.3g}" for r in mine)
+        print(f"phase 11: {name}, one camera step from each of {len(mine)} JAX states "
+              f"(frames {[r['frame'] for r in mine]}): tracked "
+              f"{[r['tracked'] for r in mine]} (JAX {[r['jax_tracked'] for r in mine]}), "
+              f"translation differences (m) [{dts}], rotation (rad) [{drs}]", flush=True)
+    # each state's share of its limit, the limit being the tolerance plus
+    # JAX's own one-ulp spread there
+    for r in rows:
+        r["share"] = max(r["dt_m"] / (STEP_TOL_M + r["jax_spread_m"]),
+                         r["dr_rad"] / (STEP_TOL_RAD + r["jax_spread_rad"]))
+    worst = max(rows, key=lambda r: r["share"])
+    quiet = [r for r in rows if r["jax_spread_m"] <= STEP_TOL_M]
+    print(f"phase 11: camera steps from JAX states: where JAX's one-ulp spread stays "
+          f"under {STEP_TOL_M} m ({len(quiet)} of {len(rows)} states) the largest "
+          f"differences are {max(r['dt_m'] for r in quiet):.3g} m and "
+          f"{max(r['dr_rad'] for r in quiet):.3g} rad; the nearest to its limit is "
+          f"{worst['regime']} frame {worst['frame']}, {worst['dt_m']:.3g} m and "
+          f"{worst['dr_rad']:.3g} rad against {STEP_TOL_M} m + {worst['jax_spread_m']:.3g} "
+          f"and {STEP_TOL_RAD} rad + {worst['jax_spread_rad']:.3g} ({worst['share']:.3f} of "
+          f"it); {time.perf_counter() - t0:.1f} s", flush=True)
+    if {r["regime"] for r in rows} != set(visual):
+        raise AssertionError(f"phase 11: no camera step from a JAX state of "
+                             f"{set(visual) - {r['regime'] for r in rows}}")
+    if not worst["share"] <= 1.0:
+        raise AssertionError(f"phase 11: the camera step from JAX's state at {worst['regime']} "
+                             f"frame {worst['frame']} lies {worst['dt_m']} m / "
+                             f"{worst['dr_rad']} rad from JAX's (limits {STEP_TOL_M} + "
+                             f"{worst['jax_spread_m']} m, {STEP_TOL_RAD} + "
+                             f"{worst['jax_spread_rad']} rad)")
+    return time.perf_counter() - t_phase
+
+
 def main() -> int:
     import torch
 
@@ -2003,6 +2323,11 @@ def main() -> int:
     phase10_runner(scans, seq)
     print(f"phase 9 took {t9:.1f} s, phase 10 {time.perf_counter() - t0:.1f} s; phases 0-10 "
           f"took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 11: three synthetic regimes, the packers side by side ----
+    t11 = phase11_regimes(scans, dev)
+    print(f"phase 11 took {t11:.1f} s; phases 0-11 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     for r in results:
         r["launches"] = launches[r["name"]]

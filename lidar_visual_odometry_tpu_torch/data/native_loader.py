@@ -29,22 +29,28 @@ _FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lib = None
 
 
-def _build() -> Path:
+def build_library(src: Path, flags: tuple, stem: str, key: bytes = b"") -> Path:
+    """``src`` compiled once by ``g++ flags`` into ``_build/<stem>_<hash>.so``,
+    the hash over the source, the flags and ``key``. Raises ``RuntimeError``
+    without ``g++`` or when the build fails."""
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found on PATH: the native scan reader cannot be built")
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD / f"libdataloader_{digest}.so"
+        raise RuntimeError(f"g++ not found on PATH: {src.name} cannot be built")
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode() + key).hexdigest()[:16]
+    out = _BUILD / f"{stem}_{digest}.so"
     if not out.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([gxx, *_FLAGS, str(_SRC), "-o", str(tmp)],
+        res = subprocess.run([gxx, *flags, str(src), "-o", str(tmp)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"building {_SRC} failed:\n{res.stderr}")
+            raise RuntimeError(f"building {src} failed:\n{res.stderr}")
         os.replace(tmp, out)
     return out
+
+
+def _build() -> Path:
+    return build_library(_SRC, _FLAGS, "libdataloader")
 
 
 def _load():

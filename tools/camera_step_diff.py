@@ -1,0 +1,299 @@
+"""Where the port's camera path parts from the JAX package's, frame by frame, on the CPU.
+
+Both runs below start every frame from ONE JAX state, so what they compare is
+a single step, not a trajectory that has already drifted.
+
+``--corridor N`` (phase 4's corridor, ``tools/jax_reference_camlidar.json``'s
+inputs, the polar2 ingest): the JAX package's per-frame chain
+(``visual_frontend.chunk_frame_step`` under ``jax.jit``, the tracker's levels
+on ``pallas_lk.lk_level`` in interpret mode) runs frames 1..N. At each frame
+four trackers see the JAX state: the JAX tracker, the JAX tracker with every
+feature position moved up by one ulp (``np.nextafter``), the port's tracker
+(``lk_level_plain``, the bits of kernel K6) and the port's tracker on the
+nudged positions. A feature is *sensitive* to an implementation when the
+one-ulp nudge moves its tracked position by more than ``SENSITIVE_PX`` or flips
+its ok flag. The tool lists, a frame, the features where the port and JAX
+differ by more than ``SENSITIVE_PX`` or in the ok flag, and those of them that
+are sensitive in neither implementation (``unexplained``): differences in
+rounding explain the others. It also gives the largest difference of the
+frame's relative pose (port step against JAX step from the same state).
+
+``--write-steps`` (``rotation_heavy`` and ``revisit_out_and_back`` at 1800
+samples, ``tools/jax_reference_regimes.json``'s inputs, the polar ingest, the
+packed images of the native packer): the same JAX chain over every frame,
+keeping at frames ``STEP_FRAMES`` the carried state (the feature table, the
+world pose and the warm start), the step JAX takes from it (relative pose,
+tracked count), and the steps it takes from the state nudged by one ulp
+(every feature position up, every one down, the world translation up): how
+far rounding alone moves JAX's own step there. Writes them to
+``tools/jax_reference_regime_steps.npz``, which ``chip_smoke.py`` phase 11
+reads, then runs the port's step from each state on the CPU
+(``chip_smoke.regime_camera_steps``) and prints the differences.
+
+Scans and images are rendered in threads with numpy's BLAS held to one thread
+(ROADMAP C.5) and must hash as the references' inputs. About ten minutes.
+
+    python tools/camera_step_diff.py [--corridor 10] [--write-steps] [--out FILE]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+
+os.environ["OPENBLAS_NUM_THREADS"] = "1"
+os.environ["OMP_NUM_THREADS"] = "1"
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path.insert(0, ROOT)
+sys.path.insert(0, HERE)
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from jax_reference_camlidar import (  # noqa: E402
+    bench_config, inputs_sha256, lk_through_pallas_interpret, render,
+)
+from jax_reference_regimes import VISUAL, regimes  # noqa: E402
+from lidar_visual_odometry_tpu.data import synthetic  # noqa: E402
+from lidar_visual_odometry_tpu.data.native_pack import pack_polar_chunk  # noqa: E402
+from lidar_visual_odometry_tpu.models import cam_lidar_pipeline as jcl  # noqa: E402
+from lidar_visual_odometry_tpu.models import visual_frontend as jvf  # noqa: E402
+from lidar_visual_odometry_tpu.ops import camera as jcam  # noqa: E402
+from lidar_visual_odometry_tpu.ops import image as jimage  # noqa: E402
+from lidar_visual_odometry_tpu.ops import lk as jlk  # noqa: E402
+from lidar_visual_odometry_tpu_torch.models import visual_frontend as vf  # noqa: E402
+from lidar_visual_odometry_tpu_torch.ops import camera as tcam  # noqa: E402
+from lidar_visual_odometry_tpu_torch.ops import se3  # noqa: E402
+from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config  # noqa: E402
+
+SENSITIVE_PX = 1e-3
+STEP_FRAMES = slice(2, None, 4)   # frames 2, 6, 10, ... (frame 1's previous image is float)
+
+
+def _uint8(im):
+    return np.clip(im * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _render(seqs, visual):
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        out = {}
+        for name, seq in seqs.items():
+            scans = list(ex.map(seq.scan, range(seq.n_frames)))
+            images = (list(ex.map(partial(render, seq), range(seq.n_frames)))
+                      if name in visual else [])
+            out[name] = scans, images
+    return out
+
+
+class JaxChain:
+    """The JAX visual frontend frame by frame from frame 0 (as
+    ``CamLidarPipeline.run_chunked`` starts it), on natively packed images."""
+
+    def __init__(self, scans, images, channels):
+        cfg = bench_config()
+        self.vcfg, lcfg = cfg.visual, cfg.lidar
+        E = np.asarray(cfg.extrinsic.matrix, np.float32)
+        R_cl, t_cl = E[:, :3], np.ascontiguousarray(E[:, 3])
+        self.cam = jcam.Pinhole.from_config(cfg.camera)
+        cx0, cm0 = jcl.camera_cloud_select(scans[0][:, :3], R_cl, t_cl,
+                                           self.vcfg.depth_cloud_cap)
+        packed = pack_polar_chunk([s[:, :3] for s in scans[1:]], n_scans=lcfg.n_scans,
+                                  width=lcfg.azimuth_bins, min_range=lcfg.min_range,
+                                  max_range=lcfg.max_range, channels=channels)
+        self.imgs8 = [None] + [_uint8(im) for im in images[1:]]
+        self.state = jvf.init_chunk_state(jnp.asarray(np.asarray(images[0], np.float32)),
+                                          jnp.asarray(cx0), jnp.asarray(cm0), self.cam,
+                                          self.vcfg)
+        clouds, masks = jcl.cam_clouds_from_polar(jnp.asarray(packed), jnp.asarray(R_cl),
+                                                  jnp.asarray(t_cl), lcfg,
+                                                  self.vcfg.depth_cloud_cap)
+        self.clouds = [None] + list(np.asarray(clouds))
+        self.masks = [None] + list(np.asarray(masks))
+        self._step = jax.jit(jvf.chunk_frame_step, static_argnames=("cfg",))
+        self.k = 1
+
+    def step(self):
+        """Frame ``k`` from the carried state: (relative pose, tracked count)."""
+        k = self.k
+        self.state, rel, n = self._step(self.state, jnp.asarray(self.imgs8[k]), self.clouds[k],
+                                        self.masks[k], self.cam, self.vcfg)
+        self.k += 1
+        return rel, int(n)
+
+    def step_from(self, state):
+        """Frame ``k``'s step from another state, the chain unmoved."""
+        _, rel, _ = self._step(state, jnp.asarray(self.imgs8[self.k]), self.clouds[self.k],
+                               self.masks[self.k], self.cam, self.vcfg)
+        return rel
+
+    def pyramid(self, k):
+        v = self.vcfg
+        img = jnp.asarray(self.imgs8[k]).astype(jnp.float32) * (1.0 / 255.0)
+        if v.use_clahe:
+            img = jimage.clahe(img, grid=v.clahe_grid, clip_limit=v.clahe_clip)
+        return tuple(jimage.build_pyramid(img, v.lk_levels))
+
+
+def _ulp(x, direction):
+    x = np.asarray(x)
+    return jnp.asarray(np.nextafter(x, np.float32(direction)).astype(np.float32))
+
+
+def _nudged_states(st):
+    """The state with every feature position one ulp up, one ulp down, and
+    with the world translation one ulp up: inputs that rounding alone could
+    have given."""
+    return (st._replace(table=st.table._replace(uv=_ulp(st.table.uv, np.inf))),
+            st._replace(table=st.table._replace(uv=_ulp(st.table.uv, -np.inf))),
+            st._replace(pose_w=st.pose_w._replace(t=_ulp(st.pose_w.t, np.inf))))
+
+
+def _port_state(js):
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    return vf.VisualChunkState(
+        vf.FeatureTable(*(t(x) for x in js.table)), se3.Pose(*(t(x) for x in js.pose_w)),
+        se3.Pose(*(t(x) for x in js.warm_rel)), tuple(t(x) for x in js.prev_pyr),
+        vf.DepthCloud(*(t(x) for x in js.prev_dc)))
+
+
+def _apart(uv_a, ok_a, uv_b, ok_b) -> set:
+    """Features whose tracked positions lie more than SENSITIVE_PX apart
+    (where both are ok) or whose ok flags differ."""
+    d = np.abs(uv_a - uv_b).max(axis=1)
+    return set(np.nonzero(((ok_a & ok_b) & (d > SENSITIVE_PX)) | (ok_a != ok_b))[0].tolist())
+
+
+def corridor(n_frames: int) -> dict:
+    with open(os.path.join(HERE, "jax_reference_camlidar.json")) as f:
+        ref = json.load(f)
+    seq = synthetic.SyntheticSequence(n_frames=ref["frames"], width=1800, speed=1.0, yaw_rate=0.004,
+                                      noise=0.01)
+    scans, images = _render({"corridor": seq}, ("corridor",))["corridor"]
+    digest = inputs_sha256(*scans, *images)
+    if digest != ref["inputs_sha256"]:
+        raise SystemExit(f"the corridor hashes to {digest[:16]}, the reference's inputs to "
+                         f"{ref['inputs_sha256'][:16]}")
+    tcfg = camlidar_config()
+    tcam_ = tcam.Pinhole.from_config(tcfg.camera, device="cpu")
+    rows = []
+    with lk_through_pallas_interpret():
+        chain = JaxChain(scans[:n_frames + 1], images[:n_frames + 1], channels=1)
+        v = chain.vcfg
+        track = jax.jit(lambda pp, p, uv, a, f: jlk.track_pyramid_reverse_checked(
+            pp, p, uv, a, f, win=v.lk_window, iters=v.lk_iters, levels=v.lk_levels,
+            max_reverse_err=v.reverse_check_px, reverse_levels=v.lk_reverse_levels or None,
+            iters_coarse=v.lk_iters_coarse or None, eps=v.lk_eps, affine=v.lk_affine,
+            reverse_affine=v.lk_reverse_affine))
+        for k in range(1, n_frames + 1):
+            st = chain.state
+            pyr = chain.pyramid(k)
+            uv0 = np.asarray(st.table.uv)
+            nudged = np.nextafter(uv0, np.float32(np.inf)).astype(np.float32)
+            j_uv, j_ok = map(np.asarray, track(st.prev_pyr, pyr, st.table.uv, st.table.active,
+                                               st.table.flow))
+            jn_uv, jn_ok = map(np.asarray, track(st.prev_pyr, pyr, jnp.asarray(nudged),
+                                                 st.table.active, st.table.flow))
+            ps = _port_state(st)
+            tpyr = tuple(torch.from_numpy(np.array(p)) for p in pyr)
+            p_uv, p_ok = (x.numpy() for x in vf._track(ps.prev_pyr, tpyr, ps.table, tcfg.visual))
+            pn_uv, pn_ok = (x.numpy() for x in vf._track(
+                ps.prev_pyr, tpyr, ps.table._replace(uv=torch.from_numpy(nudged)), tcfg.visual))
+            _, p_rel, p_n = vf.chunk_frame_step(
+                ps, torch.from_numpy(chain.imgs8[k]), torch.from_numpy(chain.clouds[k]),
+                torch.from_numpy(chain.masks[k]), tcam_, tcfg.visual)
+            j_rel, j_n = chain.step()
+            apart = _apart(p_uv, p_ok, j_uv, j_ok)
+            j_sens = _apart(jn_uv, jn_ok, j_uv, j_ok)
+            p_sens = _apart(pn_uv, pn_ok, p_uv, p_ok)
+            both = j_ok & p_ok
+            rows.append({
+                "frame": k,
+                "port_vs_jax": sorted(apart),
+                "ok_flips": sorted(np.nonzero(j_ok != p_ok)[0].tolist()),
+                "jax_sensitive": sorted(j_sens),
+                "port_sensitive": sorted(p_sens),
+                "unexplained": sorted(apart - j_sens - p_sens),
+                "tracked_ok": [int(j_ok.sum()), int(p_ok.sum())],
+                "uv_p99_px": float(np.quantile(np.abs(p_uv - j_uv)[both].max(axis=1), 0.99)),
+                "step_dt_m": float(np.abs(p_rel.t.numpy() - np.asarray(j_rel.t)).max()),
+                "tracked": [j_n, int(p_n)],
+            })
+            print(json.dumps(rows[-1]), flush=True)
+    return {"frames": rows}
+
+
+def write_steps(path: str) -> dict:
+    with open(os.path.join(HERE, "jax_reference_regimes.json")) as f:
+        ref = json.load(f)
+    seqs = {name: seq for name, seq in regimes(ref["width"]).items() if name in VISUAL}
+    inputs = _render(seqs, VISUAL)
+    arrays = {}
+    for name, (scans, images) in inputs.items():
+        digest = inputs_sha256(*scans, *images)
+        if digest != ref["regimes"][name]["inputs_sha256"]:
+            raise SystemExit(f"{name} hashes to {digest[:16]}, the reference's inputs to "
+                             f"{ref['regimes'][name]['inputs_sha256'][:16]}")
+        keep = list(range(len(scans)))[STEP_FRAMES]
+        arrays[f"{name}:frames"] = np.asarray(keep, np.int32)
+        t0 = time.time()
+        with lk_through_pallas_interpret():
+            chain = JaxChain(scans, images, channels=2)
+            for k in range(1, len(scans)):
+                st = chain.state
+                if k in keep:
+                    nudged = [chain.step_from(s) for s in _nudged_states(st)]
+                rel, n = chain.step()
+                if k not in keep:
+                    continue
+                leaves = (*st.table, *st.pose_w, *st.warm_rel)
+                for i, leaf in enumerate(leaves):
+                    arrays[f"{name}:{k}:vchunk_{i}"] = np.asarray(leaf)
+                arrays[f"{name}:{k}:rel_q"] = np.asarray(rel.q)
+                arrays[f"{name}:{k}:rel_t"] = np.asarray(rel.t)
+                arrays[f"{name}:{k}:tracked"] = np.asarray(n, np.int32)
+                arrays[f"{name}:{k}:nudged_rel_q"] = np.stack([np.asarray(r.q) for r in nudged])
+                arrays[f"{name}:{k}:nudged_rel_t"] = np.stack([np.asarray(r.t) for r in nudged])
+        print(f"{name}: {len(keep)} states kept in {time.time() - t0:.1f} s", flush=True)
+    np.savez_compressed(path, **arrays)
+    rows = chip_smoke.regime_camera_steps(inputs, "cpu", path)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    return {"port_cpu_steps": rows}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--corridor", type=int, default=10, metavar="N",
+                    help="frames of phase 4's corridor to compare (0: none)")
+    ap.add_argument("--write-steps", action="store_true",
+                    help="write tools/jax_reference_regime_steps.npz and run the port on it")
+    ap.add_argument("--steps-path", default=os.path.join(HERE, "jax_reference_regime_steps.npz"))
+    ap.add_argument("--out", default=None, help="also write the result here as JSON")
+    args = ap.parse_args()
+    out = {"sensitive_px": SENSITIVE_PX}
+    if args.corridor:
+        out["corridor"] = corridor(args.corridor)
+    if args.write_steps:
+        out["regimes"] = write_steps(args.steps_path)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f)
+    print(json.dumps({k: v for k, v in out.items() if k != "corridor"}))
+
+
+if __name__ == "__main__":
+    main()

@@ -20,9 +20,9 @@ every rank:
 Frame 0 bootstraps as ``CamLidarPipeline.run_chunked`` does: its features
 from the padded float cloud, its depth cloud cut on the host
 (``camera_cloud_select``), a replenish-only table. Tracked frames pack their
-scans into the polar image on the host with the port's ``pack_polar_chunk``
-(the JAX package packs them with its native packer, which differs from the
-numpy packer in a few cells), take their features from the polar image and
+scans into the polar image on the host with the native packer
+(``data/native_pack.py``, the JAX package's packer), take their features
+from the polar image and
 their depth clouds from it on the device (``cam_clouds_from_polar``), and
 upload their images as uint8, as the single-device chunk does.
 """
@@ -34,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from ..data import native_pack
 from ..models import visual_frontend as vf
 from ..models.cam_lidar_pipeline import (
     MAX_PRIOR_STEP, _map_cam_poses_to_lidar, _np_quat_from_matrix, _to_uint8,
@@ -85,9 +86,9 @@ class DistributedCamLidarPipeline(DistributedSlamPipeline):
         """One raw scan as a (1, R, W, 2) polar image of int32 cells on the
         rank's device (the ``"polar"`` ingest)."""
         lcfg = self.cfg.lidar
-        img = pc.pack_polar_chunk([np.asarray(points)[:, :3]], n_scans=lcfg.n_scans,
-                                  width=lcfg.azimuth_bins, min_range=lcfg.min_range,
-                                  max_range=lcfg.max_range, channels=2)
+        img = native_pack.pack_polar_chunk(
+            [np.asarray(points)[:, :3]], n_scans=lcfg.n_scans, width=lcfg.azimuth_bins,
+            min_range=lcfg.min_range, max_range=lcfg.max_range, n_frames=1, channels=2)
         return pc.polar_image_to_tensor(img, self.device)
 
     def _prep_image(self, image, first: bool) -> torch.Tensor:

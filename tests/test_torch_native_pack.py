@@ -9,10 +9,13 @@ points nearer than ``min_range`` and farther than ``max_range``, and rows of
 keeps the JAX package's rule (``tests/test_pointcloud.py``): the range plane
 exact, the offsets within one quantum, 99% of cells alike. Without ``g++``, on
 a failed build and on a failed pack the port raises; it builds into its
-``_build/`` and never writes ``native/libscanpack.so``. The polar ingests of
-``models/pipeline.py`` still upload the numpy packer's images."""
+``_build/`` and never writes ``native/libscanpack.so``. The distributed
+cam-lidar driver uploads the JAX package's native pack bit for bit; the
+polar ingests of ``models/pipeline.py`` still upload the numpy packer's
+images."""
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -159,3 +162,25 @@ def test_pipeline_uploads_the_numpy_images(clean, chunks, ingest):
     np.testing.assert_array_equal(got.numpy(), pc.pack_polar_chunk(batch, **geom).astype(np.int32))
     native = jnp_pack.pack_polar_chunk(batch, n_frames=len(batch), **geom).astype(np.int32)
     assert (got.numpy() == native).all(axis=-1).mean() > 0.99
+
+
+def test_distributed_pack_scan_uploads_the_native_images(chunks):
+    """``DistributedCamLidarPipeline._pack_scan`` (one tracked frame at a
+    time, the polar ingest) uploads the JAX driver's native pack bit for bit,
+    for a spoilt scan, an empty one and a clean one, with and without an
+    intensity column."""
+    from lidar_visual_odometry_tpu.parallel.distributed_camlidar import (
+        DistributedCamLidarPipeline as JaxDistributed,
+    )
+    from lidar_visual_odometry_tpu.utils.config import SystemConfig as JaxSystemConfig
+    from lidar_visual_odometry_tpu_torch.parallel.distributed_camlidar import (
+        DistributedCamLidarPipeline,
+    )
+
+    port = SimpleNamespace(cfg=SystemConfig(), device=torch.device("cpu"))
+    ref = SimpleNamespace(cfg=JaxSystemConfig())
+    for scan in (*chunks[3], *chunks[4]):
+        got = DistributedCamLidarPipeline._pack_scan(port, scan)
+        want = JaxDistributed._pack_scan(ref, scan)
+        assert got.dtype == torch.int32 and got.shape == (1, *want.shape)
+        np.testing.assert_array_equal(got[0].numpy(), want.astype(np.int32))

@@ -139,9 +139,11 @@ def test_port_imports_no_jax():
     package, with every module imported, the k-NN entry points of kernels
     K7, K8 and K5p, the direct VO modules, the IMU back-end, the coupled
     and mapping cam-lidar chunks and the distributed layer among them, and
-    with the KITTI runner ``scripts/run_kitti_torch.py`` and the fleet
-    tests' rank module ``tests/_torch_mp_worker.py`` loaded; neither of
-    those two names jax or the JAX package in any import statement."""
+    with the KITTI runner ``scripts/run_kitti_torch.py``, the stress drives
+    ``scripts/stress_long_torch.py`` and ``scripts/stress_visual_torch.py``
+    and the fleet tests' rank module ``tests/_torch_mp_worker.py`` loaded;
+    none of those four names jax or the JAX package in any import
+    statement."""
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
         "import lidar_visual_odometry_tpu_torch as p\n"
@@ -149,8 +151,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "sys.path.insert(0, 'tests')\n"
         "import _torch_mp_worker\n"
-        "spec = importlib.util.spec_from_file_location('runner', 'scripts/run_kitti_torch.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "for name in ('run_kitti_torch', 'stress_long_torch', 'stress_visual_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "       or m == 'lidar_visual_odometry_tpu'\n"
@@ -186,7 +189,8 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
-    for path in ("scripts/run_kitti_torch.py", "tests/_torch_mp_worker.py"):
+    for path in ("scripts/run_kitti_torch.py", "scripts/stress_long_torch.py",
+                 "scripts/stress_visual_torch.py", "tests/_torch_mp_worker.py"):
         with open(os.path.join(REPO, path)) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):

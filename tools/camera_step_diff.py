@@ -15,8 +15,15 @@ one-ulp nudge moves its tracked position by more than ``SENSITIVE_PX`` or flips
 its ok flag. The tool lists, a frame, the features where the port and JAX
 differ by more than ``SENSITIVE_PX`` or in the ok flag, and those of them that
 are sensitive in neither implementation (``unexplained``): differences in
-rounding explain the others. It also gives the largest difference of the
-frame's relative pose (port step against JAX step from the same state).
+rounding explain the others. It also gives the frame's relative pose
+difference (port step against JAX step from the same state: the largest
+axis, and the signed vector beside JAX's step, to show a bias), and the
+stages after tracking fed the same inputs: the depth gates on JAX's tracks
+(the largest depth difference, the features whose depth differs by more
+than 1 mm, the active / has-depth / epipolar flags that differ; and the same
+two figures for JAX's own gates run under ``jax.disable_jit()`` against its
+jitted ones) and the pose solve on JAX's gates (the largest translation
+difference).
 
 ``--write-steps`` (``rotation_heavy`` and ``revisit_out_and_back`` at 1800
 samples, ``tools/jax_reference_regimes.json``'s inputs, the polar ingest, the
@@ -29,11 +36,17 @@ far rounding alone moves JAX's own step there. Writes them to
 ``tools/jax_reference_regime_steps.npz``, which ``chip_smoke.py`` phase 11
 reads, then runs the port's step from each state on the CPU
 (``chip_smoke.regime_camera_steps``) and prints the differences.
+``--write-steps corridor`` does the same on phase 4's corridor (the inputs
+of ``tools/jax_reference_camlidar.json``, the polar2 ingest, the range-only
+images of the native packer) at frames 4, 8, ..., 48, and writes
+``tools/jax_reference_corridor_steps.npz``, which phase 4 reads; bare
+``--write-steps`` writes both files.
 
 Scans and images are rendered in threads with numpy's BLAS held to one thread
-(ROADMAP C.5) and must hash as the references' inputs. About ten minutes.
+(ROADMAP C.5) and must hash as the references' inputs. About ten minutes for
+the regimes, five for the corridor's states.
 
-    python tools/camera_step_diff.py [--corridor 10] [--write-steps] [--out FILE]
+    python tools/camera_step_diff.py [--corridor 10] [--write-steps [regimes,corridor]] [--out FILE]
 """
 
 from __future__ import annotations
@@ -81,6 +94,7 @@ from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config  
 
 SENSITIVE_PX = 1e-3
 STEP_FRAMES = slice(2, None, 4)   # frames 2, 6, 10, ... (frame 1's previous image is float)
+CORRIDOR_STEP_FRAMES = slice(4, None, 4)   # frames 4, 8, ..., 48
 
 
 def _uint8(im):
@@ -198,6 +212,8 @@ def corridor(n_frames: int) -> dict:
             max_reverse_err=v.reverse_check_px, reverse_levels=v.lk_reverse_levels or None,
             iters_coarse=v.lk_iters_coarse or None, eps=v.lk_eps, affine=v.lk_affine,
             reverse_affine=v.lk_reverse_affine))
+        gates = jax.jit(jvf.depth_gates)
+        solve = jax.jit(jvf.solve_pose, static_argnames=("cfg",))
         for k in range(1, n_frames + 1):
             st = chain.state
             pyr = chain.pyramid(k)
@@ -216,6 +232,20 @@ def corridor(n_frames: int) -> dict:
                 ps, torch.from_numpy(chain.imgs8[k]), torch.from_numpy(chain.clouds[k]),
                 torch.from_numpy(chain.masks[k]), tcam_, tcfg.visual)
             j_rel, j_n = chain.step()
+            # the stages after tracking, both fed JAX's tracks: the depth
+            # gates, then the pose solve fed JAX's gates
+            jg = gates(jnp.asarray(j_uv), jnp.asarray(j_ok), st.prev_dc, st.table, st.pose_w,
+                       chain.cam)
+            pg = vf.depth_gates(torch.from_numpy(j_uv), torch.from_numpy(j_ok), ps.prev_dc,
+                                ps.table, ps.pose_w, tcam_)
+            d_depth = np.abs(pg[3].numpy() - np.asarray(jg[3]))
+            with jax.disable_jit():     # JAX's own gates rounded one operation at a time
+                je = jvf.depth_gates(jnp.asarray(j_uv), jnp.asarray(j_ok), st.prev_dc, st.table,
+                                     st.pose_w, chain.cam)
+            d_eager = np.abs(np.asarray(je[3]) - np.asarray(jg[3]))
+            g_rel = vf.solve_pose(ps.warm_rel, *(torch.from_numpy(np.array(x)) for x in jg[1:]),
+                                  tcfg.visual)
+            jg_rel = solve(st.warm_rel, *jg[1:], v)
             apart = _apart(p_uv, p_ok, j_uv, j_ok)
             j_sens = _apart(jn_uv, jn_ok, j_uv, j_ok)
             p_sens = _apart(pn_uv, pn_ok, p_uv, p_ok)
@@ -230,10 +260,56 @@ def corridor(n_frames: int) -> dict:
                 "tracked_ok": [int(j_ok.sum()), int(p_ok.sum())],
                 "uv_p99_px": float(np.quantile(np.abs(p_uv - j_uv)[both].max(axis=1), 0.99)),
                 "step_dt_m": float(np.abs(p_rel.t.numpy() - np.asarray(j_rel.t)).max()),
+                "gates_depth_max_m": float(d_depth.max()),
+                "gates_depth_features": int((d_depth > 1e-3).sum()),
+                "jax_eager_gates_depth_max_m": float(d_eager.max()),
+                "jax_eager_gates_depth_features": int((d_eager > 1e-3).sum()),
+                "gates_flag_flips": int(sum((a.numpy() != np.asarray(b)).sum()
+                                            for i, (a, b) in enumerate(zip(pg, jg))
+                                            if i in (0, 4, 5))),
+                "solve_same_inputs_dt_m": float(np.abs(g_rel.t.numpy()
+                                                       - np.asarray(jg_rel.t)).max()),
+                # signed: the port's step minus JAX's, and JAX's step itself
+                "step_d_t": (p_rel.t.numpy() - np.asarray(j_rel.t)).astype(float).tolist(),
+                "jax_step_t": np.asarray(j_rel.t).astype(float).tolist(),
                 "tracked": [j_n, int(p_n)],
             })
             print(json.dumps(rows[-1]), flush=True)
     return {"frames": rows}
+
+
+def _keep_states(name, scans, images, channels, keep, arrays) -> None:
+    """Run the JAX chain over every frame of one sequence and keep, at the
+    frames ``keep``, the carried state, JAX's step from it and its steps
+    from the three one-ulp nudges, under ``{name}:...`` in ``arrays``."""
+    arrays[f"{name}:frames"] = np.asarray(keep, np.int32)
+    arrays[f"{name}:channels"] = np.asarray(channels, np.int32)
+    t0 = time.time()
+    with lk_through_pallas_interpret():
+        chain = JaxChain(scans, images, channels=channels)
+        for k in range(1, max(keep) + 1):
+            st = chain.state
+            if k in keep:
+                nudged = [chain.step_from(s) for s in _nudged_states(st)]
+            rel, n = chain.step()
+            if k not in keep:
+                continue
+            leaves = (*st.table, *st.pose_w, *st.warm_rel)
+            for i, leaf in enumerate(leaves):
+                arrays[f"{name}:{k}:vchunk_{i}"] = np.asarray(leaf)
+            arrays[f"{name}:{k}:rel_q"] = np.asarray(rel.q)
+            arrays[f"{name}:{k}:rel_t"] = np.asarray(rel.t)
+            arrays[f"{name}:{k}:tracked"] = np.asarray(n, np.int32)
+            arrays[f"{name}:{k}:nudged_rel_q"] = np.stack([np.asarray(r.q) for r in nudged])
+            arrays[f"{name}:{k}:nudged_rel_t"] = np.stack([np.asarray(r.t) for r in nudged])
+    print(f"{name}: {len(keep)} states kept in {time.time() - t0:.1f} s", flush=True)
+
+
+def _port_steps(inputs, path) -> list:
+    rows = chip_smoke.regime_camera_steps(inputs, "cpu", path)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    return rows
 
 
 def write_steps(path: str) -> dict:
@@ -247,48 +323,55 @@ def write_steps(path: str) -> dict:
         if digest != ref["regimes"][name]["inputs_sha256"]:
             raise SystemExit(f"{name} hashes to {digest[:16]}, the reference's inputs to "
                              f"{ref['regimes'][name]['inputs_sha256'][:16]}")
-        keep = list(range(len(scans)))[STEP_FRAMES]
-        arrays[f"{name}:frames"] = np.asarray(keep, np.int32)
-        t0 = time.time()
-        with lk_through_pallas_interpret():
-            chain = JaxChain(scans, images, channels=2)
-            for k in range(1, len(scans)):
-                st = chain.state
-                if k in keep:
-                    nudged = [chain.step_from(s) for s in _nudged_states(st)]
-                rel, n = chain.step()
-                if k not in keep:
-                    continue
-                leaves = (*st.table, *st.pose_w, *st.warm_rel)
-                for i, leaf in enumerate(leaves):
-                    arrays[f"{name}:{k}:vchunk_{i}"] = np.asarray(leaf)
-                arrays[f"{name}:{k}:rel_q"] = np.asarray(rel.q)
-                arrays[f"{name}:{k}:rel_t"] = np.asarray(rel.t)
-                arrays[f"{name}:{k}:tracked"] = np.asarray(n, np.int32)
-                arrays[f"{name}:{k}:nudged_rel_q"] = np.stack([np.asarray(r.q) for r in nudged])
-                arrays[f"{name}:{k}:nudged_rel_t"] = np.stack([np.asarray(r.t) for r in nudged])
-        print(f"{name}: {len(keep)} states kept in {time.time() - t0:.1f} s", flush=True)
+        _keep_states(name, scans, images, 2, list(range(len(scans)))[STEP_FRAMES], arrays)
     np.savez_compressed(path, **arrays)
-    rows = chip_smoke.regime_camera_steps(inputs, "cpu", path)
-    for row in rows:
-        print(json.dumps(row), flush=True)
-    return {"port_cpu_steps": rows}
+    return {"port_cpu_steps": _port_steps(inputs, path)}
+
+
+def write_corridor_steps(path: str) -> dict:
+    """Phase 4's corridor: ``tools/jax_reference_camlidar.json``'s inputs,
+    the polar2 ingest (the range-only images), the states at
+    ``CORRIDOR_STEP_FRAMES``."""
+    with open(os.path.join(HERE, "jax_reference_camlidar.json")) as f:
+        ref = json.load(f)
+    seq = synthetic.SyntheticSequence(n_frames=ref["frames"], width=1800, speed=1.0,
+                                      yaw_rate=0.004, noise=0.01)
+    scans, images = _render({"corridor": seq}, ("corridor",))["corridor"]
+    digest = inputs_sha256(*scans, *images)
+    if digest != ref["inputs_sha256"]:
+        raise SystemExit(f"the corridor hashes to {digest[:16]}, the reference's inputs to "
+                         f"{ref['inputs_sha256'][:16]}")
+    arrays = {}
+    _keep_states("corridor", scans, images, 1,
+                 list(range(len(scans)))[CORRIDOR_STEP_FRAMES], arrays)
+    np.savez_compressed(path, **arrays)
+    return {"port_cpu_steps": _port_steps({"corridor": (scans, images)}, path)}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--corridor", type=int, default=10, metavar="N",
                     help="frames of phase 4's corridor to compare (0: none)")
-    ap.add_argument("--write-steps", action="store_true",
-                    help="write tools/jax_reference_regime_steps.npz and run the port on it")
+    ap.add_argument("--write-steps", nargs="?", const="regimes,corridor", default="",
+                    metavar="regimes,corridor",
+                    help="write tools/jax_reference_regime_steps.npz (regimes) and "
+                         "tools/jax_reference_corridor_steps.npz (corridor), and run the port "
+                         "on each")
     ap.add_argument("--steps-path", default=os.path.join(HERE, "jax_reference_regime_steps.npz"))
+    ap.add_argument("--corridor-steps-path",
+                    default=os.path.join(HERE, "jax_reference_corridor_steps.npz"))
     ap.add_argument("--out", default=None, help="also write the result here as JSON")
     args = ap.parse_args()
     out = {"sensitive_px": SENSITIVE_PX}
     if args.corridor:
         out["corridor"] = corridor(args.corridor)
-    if args.write_steps:
+    which = set(filter(None, args.write_steps.split(",")))
+    if which - {"regimes", "corridor"}:
+        raise SystemExit(f"--write-steps takes regimes and corridor, got {args.write_steps}")
+    if "regimes" in which:
         out["regimes"] = write_steps(args.steps_path)
+    if "corridor" in which:
+        out["corridor_steps"] = write_corridor_steps(args.corridor_steps_path)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f)

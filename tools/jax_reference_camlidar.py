@@ -19,9 +19,20 @@ wrapped to run in interpret mode. JAX's caches are cleared around the run so
 that no program traced without the patch is reused. A second run without the
 patch records the XLA path's ``ate_visual`` for information.
 
+Rounding alone moves the camera's trajectory by centimetres (``PERF.md`` §6),
+so the tool also runs the ensemble that ``chip_smoke.py`` bounds the port's
+``ate_visual`` with: four members, each the reference run with one camera
+intrinsic moved by one float32 ulp (``fx`` up, ``fx`` down, ``fy`` up, ``fy``
+down; the pipelines compute in float32). A member whose visual trajectory
+comes out bit for bit the reference run's is replaced by ``cx`` up, then
+``cy`` up. Each member's ``ate_visual`` goes under ``ulp_members``. The
+record also holds a sha256 of the JAX native packer's images of every frame
+(``packed_sha256``: the range-only polar2 images, then the two-channel polar
+ones), which ``chip_smoke.py`` prints beside the port's.
+
 Scans and images are rendered in threads with numpy's BLAS held to one
 thread (several BLAS threads under several Python threads have corrupted
-renders). Takes several minutes (four interpret-mode LK calls a frame).
+renders). Takes about ten minutes (four interpret-mode LK calls a frame, six runs).
 Writes ``tools/jax_reference_camlidar.json`` (with a sha256 of the scans,
 then the images), which ``chip_smoke.py`` reads, and prints it.
 
@@ -31,6 +42,7 @@ then the images), which ``chip_smoke.py`` reads, and prints it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -54,7 +66,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from lidar_visual_odometry_tpu.data import synthetic  # noqa: E402
+from lidar_visual_odometry_tpu.data import native_pack, synthetic  # noqa: E402
 from lidar_visual_odometry_tpu.eval import metrics  # noqa: E402
 from lidar_visual_odometry_tpu.models.cam_lidar_pipeline import CamLidarPipeline  # noqa: E402
 from lidar_visual_odometry_tpu.utils.config import (  # noqa: E402
@@ -117,6 +129,59 @@ def inputs_sha256(*arrays) -> str:
     return digest.hexdigest()
 
 
+def packed_sha256(scans) -> str:
+    """sha256 of the JAX native packer's polar2 images of every frame, then
+    its polar images, at the pipelines' lidar geometry."""
+    lcfg = SystemConfig().lidar
+    geom = dict(n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
+                max_range=lcfg.max_range)
+    return inputs_sha256(native_pack.pack_polar_chunk(scans, channels=1, **geom),
+                         native_pack.pack_polar_chunk(scans, channels=2, **geom))
+
+
+# The ensemble's members: a camera intrinsic and the way it moves by one
+# float32 ulp; the spares replace, in order, a member that leaves the visual
+# trajectory bit for bit the reference run's.
+MEMBERS = (("fx", "up"), ("fx", "down"), ("fy", "up"), ("fy", "down"))
+SPARES = (("cx", "up"), ("cy", "up"))
+
+
+def nudged(cfg: SystemConfig, name: str, direction: str) -> SystemConfig:
+    """``cfg`` with one camera intrinsic moved by one float32 ulp."""
+    value = np.float32(getattr(cfg.camera, name))
+    to = np.float32(np.inf if direction == "up" else -np.inf)
+    return dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, **{name: float(np.nextafter(value, to))}))
+
+
+def ulp_members(cfg: SystemConfig, run, visual_positions) -> list:
+    """``run(cfg')`` -> (visual positions, ``ate_visual``) for each member's
+    configuration; a member whose positions equal ``visual_positions`` bit
+    for bit is replaced by the next spare. One record a member."""
+    members, spares = [], list(SPARES)
+    for name, direction in MEMBERS:
+        while True:
+            t0 = time.time()
+            mcfg = nudged(cfg, name, direction)
+            positions, ate = run(mcfg)
+            positions = np.asarray(positions)
+            if not np.array_equal(positions, visual_positions):
+                break
+            print(f"member {name} {direction}: the visual trajectory is the reference run's "
+                  f"bit for bit; replaced", flush=True)
+            if not spares:
+                raise SystemExit("no spare member left")
+            name, direction = spares.pop(0)
+        members.append({
+            "intrinsic": name, "direction": direction,
+            "value": getattr(mcfg.camera, name), "ate_visual_m": ate,
+            "largest_visual_position_difference_m": float(
+                np.abs(positions - visual_positions).max()),
+            "run_s": time.time() - t0})
+        print(f"member {name} {direction}: ate_visual {ate:.5f} m", flush=True)
+    return members
+
+
 def render(seq, k):
     Rc, tc = synthetic.camera_from_velodyne_pose(*seq.pose(k))
     return synthetic.render_image(seq.scene, Rc, tc, **CAM)[0]
@@ -150,7 +215,13 @@ def main() -> None:
     t0 = time.time()
     with lk_through_pallas_interpret():
         res = CamLidarPipeline(cfg).run_chunked(scans, images, chunk=8, ingest="polar2")
-    run_s = time.time() - t0
+        run_s = time.time() - t0
+
+        def member(mcfg):
+            r = CamLidarPipeline(mcfg).run_chunked(scans, images, chunk=8, ingest="polar2")
+            return r.visual_positions, ate_visual(seq, r.visual_positions, n)
+
+        members = ulp_members(cfg, member, np.asarray(res.visual_positions))
     out = {
         "backend": jax.default_backend(),
         "lk": "pallas_lk.lk_level, interpret mode",
@@ -168,6 +239,8 @@ def main() -> None:
         xla = CamLidarPipeline(cfg).run_chunked(scans, images, chunk=8, ingest="polar2")
         out["xla_lk_ate_visual_m"] = ate_visual(seq, xla.visual_positions, n)
         out["xla_lk_run_s"] = time.time() - t0
+    out["ulp_members"] = members
+    out["packed_sha256"] = packed_sha256(scans)
     text = json.dumps(out)
     with open(args.out, "w") as f:
         f.write(text + "\n")

@@ -22,8 +22,14 @@ With ``--eager`` the coupled run also runs under ``jax.disable_jit()``: the
 same operations rounded one at a time, the reference's own rounding spread,
 which the coupled lidar inherits from the camera (seven minutes more).
 
+The coupled run's one-ulp ensemble (``jax_reference_camlidar.ulp_members``:
+the run with ``fx`` up, ``fx`` down, ``fy`` up, ``fy`` down by one float32
+ulp) goes under ``coupled_ulp_members``; one mode is enough, because the
+three share one visual trajectory. ``packed_sha256`` is the JAX native
+packer's images of the 17 frames (polar2, then polar).
+
 Scans and images are rendered in threads with numpy's BLAS held to one thread
-(ROADMAP C.5). Takes about eight minutes, fifteen with ``--eager``. Writes
+(ROADMAP C.5). Takes about fifteen minutes, twenty-two with ``--eager``. Writes
 ``tools/jax_reference_modes.json`` (with a sha256 of the scans, the images
 and the IMU stream's stamps, accelerations and rates, in that order), which
 ``chip_smoke.py`` reads, and prints it.
@@ -56,7 +62,8 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 from jax_reference_camlidar import (  # noqa: E402
-    ate_visual, bench_config, inputs_sha256, lk_through_pallas_interpret, render,
+    ate_visual, bench_config, inputs_sha256, lk_through_pallas_interpret, packed_sha256, render,
+    ulp_members,
 )
 from lidar_visual_odometry_tpu.data import sync, synthetic  # noqa: E402
 from lidar_visual_odometry_tpu.eval import metrics  # noqa: E402
@@ -121,6 +128,16 @@ def main() -> None:
             runs[name] = CamLidarPipeline(cfg).run_chunked(scans[:m], images[:m], chunk=8,
                                                            ingest="polar2", **kw)
             record(name, runs[name], t0)
+
+        # the one-ulp ensemble of the coupled run (the three modes share one
+        # visual trajectory: mapping does not feed back into it)
+        def member(mcfg):
+            r = CamLidarPipeline(mcfg).run_chunked(scans[:m], images[:m], chunk=8,
+                                                   ingest="polar2", coupled=True)
+            return r.visual_positions, ate_visual(seq, r.visual_positions, m)
+
+        out["coupled_ulp_members"] = ulp_members(
+            cfg, member, np.asarray(runs["coupled"].visual_positions))
     if args.eager:
         with lk_through_pallas_interpret(), jax.disable_jit():
             t0 = time.time()
@@ -143,6 +160,7 @@ def main() -> None:
     print(f"imu_fused: ATE {out['imu_fused_ate_m']:.5f} m in {out['imu_fused_run_s']:.1f} s",
           flush=True)
 
+    out["packed_sha256"] = packed_sha256(scans[:m])
     text = json.dumps(out)
     with open(args.out, "w") as f:
         f.write(text + "\n")

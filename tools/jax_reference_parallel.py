@@ -21,6 +21,11 @@ other ``tools/jax_reference_*.py`` at full width, 64 x 2048, capacity
   ``BA_NOISE`` (frame 0 fixed), level 0, pairs within 2, ``ba_iters`` (4)
   steps: the initial and the refined poses.
 
+The cam-lidar run's one-ulp ensemble (``jax_reference_camlidar.ulp_members``:
+the run with ``fx`` up, ``fx`` down, ``fy`` up, ``fy`` down by one float32
+ulp) goes under ``camlidar_ulp_members``, and ``packed_sha256`` is the JAX
+native packer's images of the 17 frames (polar2, then polar).
+
 Scans and images are rendered in threads with numpy's BLAS held to one thread
 (ROADMAP C.5). Writes ``tools/jax_reference_parallel.json`` (with a sha256 of
 the 17 scans, then the 17 images, and one of the BA window's images, points
@@ -55,7 +60,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from jax_reference_camlidar import (  # noqa: E402
-    ate_visual, bench_config, inputs_sha256, lk_through_pallas_interpret, render,
+    ate_visual, bench_config, inputs_sha256, lk_through_pallas_interpret, packed_sha256, render,
+    ulp_members,
 )
 from lidar_visual_odometry_tpu.data import synthetic  # noqa: E402
 from lidar_visual_odometry_tpu.eval import metrics  # noqa: E402
@@ -142,6 +148,13 @@ def main() -> None:
           f"{out['camlidar_mapped_ate_m']:.5f} m, ate_visual {out['camlidar_ate_visual_m']:.5f} m "
           f"in {out['camlidar_run_s']:.1f} s", flush=True)
 
+    def member(mcfg):
+        with lk_through_pallas_interpret():
+            _, _, v, _ = DistributedCamLidarPipeline(mcfg).run(scans, images)
+        return v, ate_visual(seq, v, m)
+
+    camlidar_members = ulp_members(cfg, member, np.asarray(vis))
+
     imgs, pts, masks, Rs, ts = ba_window(seq, scans, images, cfg)
     true = se3.Pose(se3.matrix_to_quat(jnp.asarray(Rs, jnp.float32)), jnp.asarray(ts, jnp.float32))
     init = se3.Pose(se3.quat_normalize(se3.quat_mul(se3.so3_exp(jnp.asarray(BA_NOISE[:, 3:])),
@@ -164,6 +177,8 @@ def main() -> None:
     print(f"sharded_refine: largest position error {err0:.5f} m before, {err1:.5f} m after, "
           f"in {out['ba_run_s']:.1f} s", flush=True)
 
+    out["camlidar_ulp_members"] = camlidar_members
+    out["packed_sha256"] = packed_sha256(scans)
     text = json.dumps(out)
     with open(args.out, "w") as f:
         f.write(text + "\n")

@@ -185,6 +185,26 @@ Phase 12 runs one lap of the long-horizon stress drives (``--laps 1 --leg
          ATEs printed beside JAX's (the U-turn blinds the camera). K1-K4
          launched, K6 too in the visual script.
 
+Phase 13 runs ``scripts/diag_visual_torch.py``'s four passes (``base``,
+         ``gt_depth``, ``gt_flow``, ``gt_both``: the visual frontend frame
+         by frame with ground-truth depth, flow or both swapped in) on the
+         corridor's 48 frames and images with phase 0's ground-truth depth
+         maps, through its ``main``, against ``tools/jax_reference_diag.json``
+         (from ``tools/jax_reference_diag.py``; the inputs, depth maps
+         included, must hash alike): ``gt_both``'s ATE within 0.01 m of the
+         JAX run's, each other pass's within 0.01 m of the largest of the
+         JAX run's and its four one-ulp members'; K6 launched four times a
+         tracked frame of every pass. It prints ``gt_depth`` − ``base`` on
+         both sides: how much of each one's camera drift comes from the
+         lidar depths.
+Phase 14 runs ``scripts/bench_scaling_torch.py`` (the distributed odometry,
+         mapping and BA stages of ``scripts/bench_scaling.py``'s fixtures on
+         ``parallel.launch`` fleets: one NCCL rank, two gloo ranks on the
+         one card) through its ``main`` and prints its rows: the ranks of a
+         fleet agreeing within 1e-6, the two ranks' poses within 2e-3 m
+         (odometry, mapping) and 1e-3 m (BA) of the one rank's, K2 launched
+         in each fleet.
+
 Prints one JSON line with all ten kernels' numbers, K7's two output forms in
 two rows (launches counted on the
 path that runs the kernel: phase 2 for K1-K3, phase 3 for the flat K1 and K4,
@@ -267,6 +287,10 @@ CORRIDOR_STEPS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # tools/jax_reference_stress.py: phase 12's gates.
 STRESS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tools", "jax_reference_stress.json")
+# The JAX package's scripts/diag_visual.py on the corridor's 48 frames, each
+# pass's ATE and its one-ulp members (tools/jax_reference_diag.py): phase 13.
+DIAG_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tools", "jax_reference_diag.json")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATE_MARGIN = 0.01
 SHORT_FRAMES = 17     # phase 7: the per-frame SLAM and the camera runs
@@ -299,6 +323,10 @@ GLOO_VS_NCCL_M = {"slam_odometry": 2e-3, "camlidar_lidar": 2e-3, "slam_mapped": 
                   "camlidar_mapped": 2e-3}
 BA_TOL_M = 1e-3
 HOST_MAP_TOL_M = (5e-4, 5e-3)
+# phase 14: scripts/bench_scaling_torch.py's two-rank stages against its one
+# rank (phase 9b's bound for the lidar stages, BA_TOL_M for the BA's)
+SCALING_REPS = 10
+SCALING_VS_1_RANK_M = {"odometry": 2e-3, "mapping": 2e-3, "ba": BA_TOL_M}
 
 # phase 11: the native and the numpy packer on the corridor's frames 1-8 may
 # differ in at most this share of range cells (0.0065% measured, ROADMAP A.13)
@@ -721,11 +749,13 @@ def _map_frames(imgs, poses, dev):
 
 
 def _pack(scans, dev):
+    """The scans as the polar2 ingest packs them (the native packer)."""
+    from lidar_visual_odometry_tpu_torch.data import native_pack
     from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
     from lidar_visual_odometry_tpu_torch.utils.config import SystemConfig
 
     lcfg = SystemConfig().lidar
-    return pc.polar_image_to_tensor(pc.pack_polar_chunk(
+    return pc.polar_image_to_tensor(native_pack.pack_polar_chunk(
         scans, n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
         max_range=lcfg.max_range, channels=1), dev)
 
@@ -1994,10 +2024,28 @@ def _step_gate(phase: str, rows: list, seconds: float) -> None:
                              f"{worst['jax_spread_rad']} rad)")
 
 
-def phase11_regimes(corridor_scans, dev):
+def render_regimes(pool) -> dict:
+    """The regimes of ``tools/jax_reference_regimes.json`` (the eval
+    script's), their scans and, for the camera regimes, images, submitted
+    frame by frame to ``pool``: {name: (scan futures, image futures)}."""
+    with open(REGIMES_REFERENCE) as f:
+        ref = json.load(f)
+    script = _script("eval_regimes_torch")
+    out = {}
+    for name, seq in script.build_regimes(0, ref["width"]).items():
+        if name not in ref["regimes"]:
+            continue
+        out[name] = ([pool.submit(seq.scan, k) for k in range(seq.n_frames)],
+                     [pool.submit(script.render_camera, seq, k) for k in range(seq.n_frames)]
+                     if name in script.VISUAL_REGIMES else [])
+    return out
+
+
+def phase11_regimes(corridor_scans, rendered, dev):
     """Three of the eval script's regimes at full width against
-    ``tools/jax_reference_regimes.json``, and the two packers side by side.
-    Raises on a failed gate; prints a line a step. Returns the phase's seconds."""
+    ``tools/jax_reference_regimes.json``, and the two packers side by side,
+    on ``render_regimes``' renders. Raises on a failed gate; prints a line a
+    step. Returns the phase's seconds."""
     import torch
 
     from lidar_visual_odometry_tpu_torch import kernels
@@ -2021,15 +2069,16 @@ def phase11_regimes(corridor_scans, dev):
                 max_range=lcfg.max_range)
 
     # the regimes' scans and images, rendered in threads (one BLAS thread)
+    # beside the earlier phases; the wait for what is left
     t0 = time.perf_counter()
     inputs = {}
-    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
-        for name, seq in seqs.items():
-            scans = list(ex.map(seq.scan, range(seq.n_frames)))
-            images = (list(ex.map(partial(script.render_camera, seq), range(seq.n_frames)))
-                      if name in visual else [])
-            _check_inputs(f"11 ({name})", ref["regimes"][name], _sha256((*scans, *images)))
-            inputs[name] = scans, images
+    for name, (scan_futs, image_futs) in rendered.items():
+        scans = [f.result() for f in scan_futs]
+        images = [f.result() for f in image_futs]
+        _check_inputs(f"11 ({name})", ref["regimes"][name], _sha256((*scans, *images)))
+        inputs[name] = scans, images
+    if set(inputs) != set(seqs):
+        raise AssertionError(f"phase 11: rendered {sorted(inputs)}, not {sorted(seqs)}")
     render_s = time.perf_counter() - t0
     hashes = []
     for name, (scans, _) in inputs.items():
@@ -2038,8 +2087,9 @@ def phase11_regimes(corridor_scans, dev):
         hashes.append(f"{name} {got[:16]} ({'the same' if got == want else 'differs'}; JAX "
                       f"{want[:16]})")
     print(f"phase 11: rendered {sum(len(s) for s, _ in inputs.values())} scans and "
-          f"{sum(len(i) for _, i in inputs.values())} images of {len(inputs)} regimes in "
-          f"{render_s:.1f} s, inputs hash as the reference's; the native packer's images "
+          f"{sum(len(i) for _, i in inputs.values())} images of {len(inputs)} regimes beside "
+          f"the earlier phases ({render_s:.1f} s waited here), inputs hash as the reference's; "
+          f"the native packer's images "
           f"(polar2, then polar) sha256: {'; '.join(hashes)} (reported, not gated: "
           f"-march=native may round otherwise on another CPU)", flush=True)
 
@@ -2235,6 +2285,108 @@ def phase12_stress(dev) -> float:
     return time.perf_counter() - t_phase
 
 
+def phase13_diag(scans, images, depths) -> float:
+    """``scripts/diag_visual_torch.py``'s four passes over the corridor's
+    frames through its ``main`` on the card, against
+    ``tools/jax_reference_diag.json``. Raises on a failed gate; prints a line
+    a pass. Returns the phase's seconds."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lidar_visual_odometry_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    with open(DIAG_REFERENCE) as f:
+        ref = json.load(f)
+    m = ref["frames"]
+    _check_inputs("13", ref, _sha256((*scans[:m], *images[:m], *depths[:m])))
+    diag = _script("diag_visual_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        diag.ROOT = tmp     # its cache: this script's renders
+        np.savez(os.path.join(tmp, f".bench_diag_{m}.npz"),
+                 **{f"s{k}": scans[k] for k in range(m)},
+                 **{f"i{k}": images[k] for k in range(m)},
+                 **{f"d{k}": depths[k] for k in range(m)})
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            report = diag.main(["--device", "cuda", "--quiet", "--frames", str(m)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if report["inputs_sha256"] != ref["inputs_sha256"]:
+        raise AssertionError("phase 13: the script ran other inputs than the reference's")
+    passes = report["passes"]
+    if set(passes) != set(ref["passes"]):
+        raise AssertionError(f"phase 13: passes {sorted(passes)}, the reference's "
+                             f"{sorted(ref['passes'])}")
+    if counts.get("lk_level", 0) != 4 * (m - 1) * len(passes):
+        raise AssertionError(f"phase 13: expected 4 lk_level launches a tracked frame of each "
+                             f"pass: {counts}")
+    text = []
+    for mode, got in passes.items():
+        want = ref["passes"][mode]
+        if len(got["stats"]) != m - 1 or not np.isfinite(got["ate_m"]):
+            raise AssertionError(f"phase 13: {mode}: {len(got['stats'])} frames, ATE "
+                                 f"{got['ate_m']}")
+        members = want.get("ulp_members", [])
+        base = max([want["ate_m"]] + [mem["ate_m"] for mem in members])
+        if not got["ate_m"] <= base + ATE_MARGIN:
+            raise AssertionError(f"phase 13: {mode} ATE {got['ate_m']} m exceeds the JAX "
+                                 f"reference's {base} + {ATE_MARGIN}")
+        spread = (f", one-ulp members {min(x['ate_m'] for x in members):.5f}-"
+                  f"{max(x['ate_m'] for x in members):.5f} m" if members else "")
+        text.append(f"{mode} ATE {got['ate_m']:.5f} m (JAX CPU {want['ate_m']:.5f} m{spread}; "
+                    f"limit {base + ATE_MARGIN:.5f})")
+    port_d = passes["gt_depth"]["ate_m"] - passes["base"]["ate_m"]
+    jax_d = ref["passes"]["gt_depth"]["ate_m"] - ref["passes"]["base"]["ate_m"]
+    print(f"phase 13: diag_visual_torch.py on {m} frames in {run_s:.1f} s: {'; '.join(text)}; "
+          f"gt_depth - base ATE {port_d:+.5f} m (JAX {jax_d:+.5f} m); launches {counts}",
+          flush=True)
+    return time.perf_counter() - t_phase
+
+
+def phase14_scaling() -> float:
+    """``scripts/bench_scaling_torch.py`` on one NCCL rank and two gloo ranks
+    of the card through its ``main``: prints its rows, gates the ranks'
+    agreement and the two ranks against the one, and K2's launches. Returns
+    the phase's seconds."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    scaling = _script("bench_scaling_torch")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rows = scaling.main(["--device", "cuda", "--ranks", "1,2", "--reps", str(SCALING_REPS)])
+    if [r["devices"] for r in rows] != [1, 2] or [r["backend"] for r in rows] != ["nccl", "gloo"]:
+        raise AssertionError(f"phase 14: fleets {[(r['devices'], r['backend']) for r in rows]}")
+    for r in rows:
+        keys = ("odometry_ms", "mapping_ms", "ba_ms", "ba_weak_ms", "odometry_eff", "mapping_eff",
+                "ba_eff")
+        print(f"phase 14: {r['devices']} rank(s), {r['backend']}: "
+              + ", ".join(f"{k} {r[k]:.3f}" for k in keys)
+              + f"; slowest rank {r['slowest_rank_ms']}; poses from one rank's: "
+              + ", ".join(f"{s} {r[f'{s}_vs_1_rank']:.3g} m" for s in SCALING_VS_1_RANK_M)
+              + f"; ranks agree within {r['ranks_agree']:.3g}; the fleet took "
+              f"{r['fleet_s']:.1f} s; launches {r['launches']}", flush=True)
+        if r["launches"].get("associate_kernel", 0) == 0:
+            raise AssertionError(f"phase 14: K2 was never launched on {r['devices']} rank(s): "
+                                 f"{r['launches']}")
+        if not r["ranks_agree"] <= RANKS_AGREE:
+            raise AssertionError(f"phase 14: the {r['devices']} ranks differ by "
+                                 f"{r['ranks_agree']}")
+        for stage, tol in SCALING_VS_1_RANK_M.items():
+            if not r[f"{stage}_vs_1_rank"] <= tol:
+                raise AssertionError(f"phase 14: {stage} on {r['devices']} ranks lies "
+                                     f"{r[f'{stage}_vs_1_rank']} from one rank's (limit {tol})")
+    return time.perf_counter() - t_phase
+
+
 def main() -> int:
     import torch
 
@@ -2254,6 +2406,24 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
+    # The corridor's and phase 11's regimes' renders start first, in threads
+    # beside the build: rendering is numpy, which releases the GIL, and the
+    # build's longest nvcc runs keep only two cores busy. Threads, not
+    # processes: the script must leave no process behind.
+    seq = synthetic.SyntheticSequence(
+        n_frames=N_FRAMES, width=1800, speed=1.0, yaw_rate=0.004, noise=0.01
+    )
+    workers = max(1, min(8, os.cpu_count() or 1) - 2)
+
+    def render_image(k):
+        Rc, tc = synthetic.camera_from_velodyne_pose(*seq.pose(k))
+        return synthetic.render_image(seq.scene, Rc, tc, **CAM)
+
+    pool = ThreadPoolExecutor(workers)
+    scan_futs = [pool.submit(seq.scan, k) for k in range(N_FRAMES)]
+    image_futs = [pool.submit(render_image, k) for k in range(N_FRAMES)]
+    regimes = render_regimes(pool)
+
     # ---- phase 0: the card, the toolchain, the build ----
     smi = _smi()
     print(smi, flush=True)
@@ -2264,26 +2434,17 @@ def main() -> int:
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {per_source})", flush=True)
 
-    seq = synthetic.SyntheticSequence(
-        n_frames=N_FRAMES, width=1800, speed=1.0, yaw_rate=0.004, noise=0.01
-    )
     t0 = time.perf_counter()
-    workers = min(8, os.cpu_count() or 1)
-    # threads, not processes: rendering is numpy, which releases the GIL, and
-    # the script must leave no process behind
-    def render_image(k):
-        Rc, tc = synthetic.camera_from_velodyne_pose(*seq.pose(k))
-        return synthetic.render_image(seq.scene, Rc, tc, **CAM)[0]
-
-    with ThreadPoolExecutor(workers) as ex:
-        scans = list(ex.map(seq.scan, range(N_FRAMES)))
-        images = list(ex.map(render_image, range(N_FRAMES)))
+    scans = [f.result() for f in scan_futs]
+    rendered = [f.result() for f in image_futs]
+    # the images, and the ground-truth depth maps phase 13 swaps in
+    images, depths = [r[0] for r in rendered], [r[1] for r in rendered]
     gt = np.stack([seq.pose(k)[1] for k in range(N_FRAMES)])
     scans_sha = _sha256(scans)
     scans_images_sha = _sha256((*scans, *images))
-    print(f"rendered {N_FRAMES} scans and camera images in {time.perf_counter() - t0:.1f} s "
-          f"({workers} threads, one BLAS thread each): sha256 {scans_sha[:16]} (scans), "
-          f"{scans_images_sha[:16]} (scans, then images)", flush=True)
+    print(f"rendered {N_FRAMES} scans and camera images beside the build ({workers} threads, "
+          f"one BLAS thread each; {time.perf_counter() - t0:.1f} s waited after it): sha256 "
+          f"{scans_sha[:16]} (scans), {scans_images_sha[:16]} (scans, then images)", flush=True)
 
     # ---- phase 1: each kernel against its plain version ----
     results = []
@@ -2514,13 +2675,24 @@ def main() -> int:
           f"took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 11: three synthetic regimes, the packers side by side ----
-    t11 = phase11_regimes(scans, dev)
+    t11 = phase11_regimes(scans, regimes, dev)
+    pool.shutdown()
     print(f"phase 11 took {t11:.1f} s; phases 0-11 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     # ---- phase 12: one lap of the long-horizon stress drives ----
     t12 = phase12_stress(dev)
     print(f"phase 12 took {t12:.1f} s; phases 0-12 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # ---- phase 13: the feature-VO drift diagnosis, four passes ----
+    t13 = phase13_diag(scans, images, depths)
+    print(f"phase 13 took {t13:.1f} s; phases 0-13 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # ---- phase 14: the distributed stages on one and two ranks ----
+    t14 = phase14_scaling()
+    print(f"phase 14 took {t14:.1f} s; phases 0-14 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     for r in results:

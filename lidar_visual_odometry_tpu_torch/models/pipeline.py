@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..data import native_pack
 from ..ops import pointcloud as pc
 from ..ops import se3
 from ..utils import checkpoint as ckpt
@@ -58,10 +59,12 @@ def _check_ingest(ingest: str, allowed=("float", "uint16", "polar", "polar2")) -
 
 
 def _pack_polar(batch, lcfg, ingest: str, dev: torch.device) -> torch.Tensor:
-    """A chunk of raw scans as polar images (int32 cells) on ``dev``."""
-    imgs = pc.pack_polar_chunk(
+    """A chunk of raw scans as polar images (int32 cells) on ``dev``, packed
+    by the native packer (``data/native_pack.py``), as the JAX package's
+    ``run_chunked`` polar ingests pack them: the reference's bits."""
+    imgs = native_pack.pack_polar_chunk(
         batch, n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
-        max_range=lcfg.max_range, channels=1 if ingest == "polar2" else 2)
+        max_range=lcfg.max_range, n_frames=len(batch), channels=1 if ingest == "polar2" else 2)
     return pc.polar_image_to_tensor(imgs, dev)
 
 

@@ -131,9 +131,14 @@ def associate_depth(un: torch.Tensor, active: torch.Tensor,
     idx, dist = knn.knn(q, dc.plane10, dc.mask, 3)
     z = dc.z[idx]                                   # (N, 3)
     p10 = dc.plane10[idx]                           # (N, 3, 3)
-    tenth = _recip32(10.0)
-    px = p10[..., 0] * z * tenth
-    py = p10[..., 1] * z * tenth
+    # a true division, as the reference function and an unjitted run compute
+    # it: XLA's jit multiplies by the reciprocal, whose +1.5e-8 relative scale
+    # of x and y leans the depths of this heavily cancelling determinant
+    # (ROADMAP C.7). The divisor is a tensor: PyTorch's CUDA division by a
+    # Python scalar multiplies by its reciprocal too
+    ten = torch.full_like(z, 10.0)
+    px = p10[..., 0] * z / ten
+    py = p10[..., 1] * z / ten
     x1, x2, x3 = px.unbind(1)
     y1, y2, y3 = py.unbind(1)
     z1, z2, z3 = z.unbind(1)

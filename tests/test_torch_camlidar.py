@@ -120,8 +120,8 @@ def _depth_float64(un, dc):
     q = torch.cat([10.0 * un, torch.full_like(un[:, :1], 10.0)], dim=-1)
     idx, _ = tknn.knn(q, dc.plane10, dc.mask, 3)
     z32, p10 = dc.z[idx], dc.plane10[idx]
-    x1, x2, x3 = (p10[..., 0] * z32 * np.float32(0.1)).double().unbind(1)
-    y1, y2, y3 = (p10[..., 1] * z32 * np.float32(0.1)).double().unbind(1)
+    x1, x2, x3 = (p10[..., 0] * z32 / 10.0).double().unbind(1)
+    y1, y2, y3 = (p10[..., 1] * z32 / 10.0).double().unbind(1)
     z = z32.double()
     z1, z2, z3 = z.unbind(1)
     u, v = un[:, 0].double(), un[:, 1].double()
@@ -138,11 +138,14 @@ def _depth_float64(un, dc):
 
 def test_depth_cloud_and_association_match_jax(rng, seq_data, jax_runs, port_cfg):
     """The 10-plane cloud exactly, the gates exactly, and the ray/plane
-    depth as accurate as the reference's: its determinant sums cancel
-    heavily on thin triangles, the reference's compiler fuses them into
-    multiply-adds and the port sums them as written, so each is held to the
-    float64 evaluation of the same sums (mean and largest relative error
-    within twice the reference's)."""
+    depth bit for bit the reference function's run unjitted: the port
+    divides by 10 and rounds each product and sum as written, as that run
+    does (ROADMAP C.7). Under ``jit`` the reference's compiler multiplies by
+    the reciprocal and fuses the determinant's sums, which cancel heavily on
+    thin triangles, into multiply-adds: held to the float64 evaluation of the
+    same sums, the port's mean relative error stays within twice the jitted
+    run's (measured 1.73 times; the largest 4.0 times, where a fused
+    multiply-add saves the cancelling digits)."""
     cfg, _ = port_cfg
     jdc = jvf.build_depth_cloud(jnp.asarray(jax_runs["cx0"]), jnp.asarray(jax_runs["cm0"]))
     tdc = vf.build_depth_cloud(torch.from_numpy(jax_runs["cx0"]),
@@ -157,11 +160,14 @@ def test_depth_cloud_and_association_match_jax(rng, seq_data, jax_runs, port_cfg
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
     ok = ok_t.numpy()
     assert ok.sum() > 50
+    with jax.disable_jit():
+        d_e, ok_e = jvf.associate_depth(jnp.asarray(un), jnp.asarray(act), jdc)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_e))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_e))
     want = _depth_float64(torch.from_numpy(un), tdc).numpy()[ok]
     err_t = np.abs(d_t.numpy()[ok] - want) / want
     err_j = np.abs(np.asarray(d_j)[ok] - want) / want
-    assert err_t.mean() <= 2 * err_j.mean() and err_t.max() <= 2 * err_j.max(), (
-        err_t.mean(), err_j.mean(), err_t.max(), err_j.max())
+    assert err_t.mean() <= 2 * err_j.mean(), (err_t.mean(), err_j.mean())
 
 
 def test_triangulate_matches_jax(rng):

@@ -13,8 +13,8 @@ Tolerances: on the same inputs the chunk's poses agree within 1e-3 m (the
 lidar solve's float32 rounding, tests/test_torch_odometry.py, fed back into
 the next frame's warm start) and 5e-3 m for the camera (the visual solve,
 tests/test_torch_camlidar.py); from raw scans ``run_chunked`` packs the
-polar images with the port's packer where the JAX package uses its native
-one, within the same tolerances."""
+polar images with the native packer, as the JAX package does, so the lidar
+poses there are held to ``RAW_LIDAR_TOL_M`` (measured 1.3e-4 m)."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -45,6 +45,7 @@ torch.set_num_threads(2)
 
 N_FRAMES, CHUNK = 5, 2
 LIDAR_TOL_M, VISUAL_TOL_M, QUAT_TOL = 1e-3, 5e-3, 1e-3
+RAW_LIDAR_TOL_M = 5e-4
 
 
 def config(m):
@@ -232,7 +233,7 @@ def test_run_chunked_coupled_matches_jax(seq_data, coupled_runs):
     seq, scans, images = seq_data
     _, want, port = coupled_runs
     res = port["full"]
-    assert_close(res, want)
+    assert_close(res, want, lidar_tol=RAW_LIDAR_TOL_M)
     R0, t0 = seq.pose(0)
     gt = np.stack([R0.T @ (seq.pose(k)[1] - t0) for k in range(N_FRAMES)])
     assert np.abs(res["lidar_positions"] - gt).max() < 0.05

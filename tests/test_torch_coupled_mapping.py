@@ -24,8 +24,9 @@ from lidar_visual_odometry_tpu_torch.models import device_mapping as dm
 from lidar_visual_odometry_tpu_torch.models import lidar_odometry as lo
 from lidar_visual_odometry_tpu_torch.models import visual_frontend as vf
 from lidar_visual_odometry_tpu_torch.utils import config as tcfg
-from test_torch_coupled import (CHUNK, LIDAR_TOL_M, N_FRAMES, QUAT_TOL, VISUAL_TOL_M,
-                                assert_close, chunk_inputs, outputs, seq_data)  # noqa: F401
+from test_torch_coupled import (CHUNK, LIDAR_TOL_M, N_FRAMES, QUAT_TOL, RAW_LIDAR_TOL_M,
+                                VISUAL_TOL_M, assert_close, chunk_inputs, outputs,
+                                seq_data)  # noqa: F401
 from test_torch_coupled import config
 from test_torch_visual import lk_through_pallas_interpret
 
@@ -91,10 +92,11 @@ def mode_runs(mode, scans, images, tmp=None):
 
 
 def close(got, want):
-    """From the raw scans the port packs the polar images with its own
-    packer, the JAX package with its native one; at 512 azimuth bins the
-    lidar trajectories then lie up to 1.2e-3 m apart over four frames: 2e-3 m."""
-    assert_close(got, want, lidar_tol=2e-3, map_tol=MAP_TOL_M)
+    """From the raw scans both packages pack the polar images with the
+    native packer; at 512 azimuth bins the lidar trajectories then lie up to
+    9.2e-5 m apart over four frames (1.3e-4 m in the coupled mode):
+    ``RAW_LIDAR_TOL_M``."""
+    assert_close(got, want, lidar_tol=RAW_LIDAR_TOL_M, map_tol=MAP_TOL_M)
 
 
 def slam_chunk_outputs(inp, mode):

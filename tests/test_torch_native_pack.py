@@ -10,9 +10,8 @@ keeps the JAX package's rule (``tests/test_pointcloud.py``): the range plane
 exact, the offsets within one quantum, 99% of cells alike. Without ``g++``, on
 a failed build and on a failed pack the port raises; it builds into its
 ``_build/`` and never writes ``native/libscanpack.so``. The distributed
-cam-lidar driver uploads the JAX package's native pack bit for bit; the
-polar ingests of ``models/pipeline.py`` still upload the numpy packer's
-images."""
+cam-lidar driver and the ``run_chunked`` polar ingests of
+``models/pipeline.py`` upload the JAX package's native pack bit for bit."""
 
 import os
 from types import SimpleNamespace
@@ -149,19 +148,20 @@ def test_raises_without_gxx_or_on_failure(clean, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("ingest", ["polar", "polar2"])
 def test_pipeline_uploads_the_numpy_images(clean, chunks, ingest):
-    """``_pack_polar`` (every ``run_chunked`` polar ingest) still packs with
-    the numpy packer, only the real frames, until the camera gates settle
-    (ROADMAP open item 1); where that differs from the JAX pipeline's native
-    pack, it differs in offsets by one quantum at most."""
+    """``_pack_polar`` (every ``run_chunked`` polar ingest) uploads the JAX
+    pipelines' native pack of the real frames bit for bit (the name is from
+    the time it packed with the numpy packer, held until ROADMAP C.7 was
+    settled): a clean scan, a spoilt one and another clean one."""
     lcfg = SystemConfig().lidar
     batch = [clean[0], chunks[3][0], clean[1]]
     geom = dict(n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
                 max_range=lcfg.max_range, channels=1 if ingest == "polar2" else 2)
     got = tpipe._pack_polar(batch, lcfg, ingest, torch.device("cpu"))
     assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), pc.pack_polar_chunk(batch, **geom).astype(np.int32))
     native = jnp_pack.pack_polar_chunk(batch, n_frames=len(batch), **geom).astype(np.int32)
-    assert (got.numpy() == native).all(axis=-1).mean() > 0.99
+    np.testing.assert_array_equal(got.numpy(), native)
+    # the numpy packer would not have given these bits
+    assert not np.array_equal(pc.pack_polar_chunk(batch, **geom).astype(np.int32), native)
 
 
 def test_distributed_pack_scan_uploads_the_native_images(chunks):

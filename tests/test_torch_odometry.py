@@ -3,6 +3,7 @@ odometry step from a carried state, the whole chunked polar2 pipeline, the
 import boundary and the device rule."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -134,16 +135,20 @@ def test_run_chunked_ragged_chunk_and_polar(seq_scans):
     np.testing.assert_allclose(got.quaternions, want.quaternions, atol=1e-5)
 
 
+SCRIPTS = sorted(os.path.relpath(p, REPO).replace(os.sep, "/")
+                 for p in glob.glob(os.path.join(REPO, "scripts", "*_torch.py")))
+
+
 def test_port_imports_no_jax():
     """The port imports torch and numpy only: no jax, nothing of the JAX
     package, with every module imported, the k-NN entry points of kernels
     K7, K8 and K5p, the direct VO modules, the IMU back-end, the coupled
     and mapping cam-lidar chunks and the distributed layer among them, and
-    with the KITTI runner ``scripts/run_kitti_torch.py``, the stress drives
-    ``scripts/stress_long_torch.py`` and ``scripts/stress_visual_torch.py``
-    and the fleet tests' rank module ``tests/_torch_mp_worker.py`` loaded;
-    none of those four names jax or the JAX package in any import
-    statement."""
+    with every script of the port (``scripts/*_torch.py``, by glob: the KITTI
+    runner, the eval and stress drives, the drift diagnosis, the scaling
+    harness and any later one) and the fleet tests' rank module
+    ``tests/_torch_mp_worker.py`` loaded; none of those names jax or the JAX
+    package in any import statement."""
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
         "import lidar_visual_odometry_tpu_torch as p\n"
@@ -151,8 +156,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "sys.path.insert(0, 'tests')\n"
         "import _torch_mp_worker\n"
-        "for name in ('run_kitti_torch', 'stress_long_torch', 'stress_visual_torch'):\n"
-        "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
+        f"for path in {SCRIPTS!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(path[8:-3], path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
@@ -189,8 +194,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
-    for path in ("scripts/run_kitti_torch.py", "scripts/stress_long_torch.py",
-                 "scripts/stress_visual_torch.py", "tests/_torch_mp_worker.py"):
+    for path in (*SCRIPTS, "tests/_torch_mp_worker.py"):
         with open(os.path.join(REPO, path)) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):

@@ -25,6 +25,23 @@ two figures for JAX's own gates run under ``jax.disable_jit()`` against its
 jitted ones) and the pose solve on JAX's gates (the largest translation
 difference).
 
+Three sides are then held to yardsticks of their own, each frame from the
+same JAX state: the port, JAX jitted and JAX eager (the frame step, gates
+and solve under ``jax.disable_jit()``, the tracker still on the
+interpret-mode kernel). Each side's whole step and its ``depth_gates`` +
+``solve_pose`` chain on JAX's jitted tracks give a signed translation
+beside JAX jitted's and beside the ground-truth camera step. A float64
+oracle of ``associate_depth`` (``depth_oracle``: brute-force 3-NN by exact
+differences, the same determinant ratio, clamps and gates, on JAX's float32
+query and depth cloud cast to float64) judges each side's
+``associate_depth`` on that same query: (i) features whose 3-NN set differs
+from float64's, (ii) on equal sets the depth error (median, 99th
+percentile, signed mean), (iii) the ``ok`` flags that differ, and the
+depths more than 1 mm off split into neighbour flips and determinant
+rounding. ``summary`` gives, a side, the lateral (x) lean of its steps (sum,
+mean, standard error, Wilcoxon signed-rank p) and the totals of (i)-(iii).
+About 45 s a frame, most of it the eager step.
+
 ``--write-steps`` (``rotation_heavy`` and ``revisit_out_and_back`` at 1800
 samples, ``tools/jax_reference_regimes.json``'s inputs, the polar ingest, the
 packed images of the native packer): the same JAX chain over every frame,
@@ -47,6 +64,7 @@ Scans and images are rendered in threads with numpy's BLAS held to one thread
 the regimes, five for the corridor's states.
 
     python tools/camera_step_diff.py [--corridor 10] [--write-steps [regimes,corridor]] [--out FILE]
+    python tools/camera_step_diff.py --corridor 48 --out FILE    # C.7's table, about 40 min
 """
 
 from __future__ import annotations
@@ -74,6 +92,7 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from scipy import stats as sstats  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from jax_reference_camlidar import (  # noqa: E402
@@ -86,13 +105,17 @@ from lidar_visual_odometry_tpu.models import cam_lidar_pipeline as jcl  # noqa: 
 from lidar_visual_odometry_tpu.models import visual_frontend as jvf  # noqa: E402
 from lidar_visual_odometry_tpu.ops import camera as jcam  # noqa: E402
 from lidar_visual_odometry_tpu.ops import image as jimage  # noqa: E402
+from lidar_visual_odometry_tpu.ops import knn as jknn  # noqa: E402
 from lidar_visual_odometry_tpu.ops import lk as jlk  # noqa: E402
 from lidar_visual_odometry_tpu_torch.models import visual_frontend as vf  # noqa: E402
 from lidar_visual_odometry_tpu_torch.ops import camera as tcam  # noqa: E402
+from lidar_visual_odometry_tpu_torch.ops import knn as tknn  # noqa: E402
 from lidar_visual_odometry_tpu_torch.ops import se3  # noqa: E402
 from lidar_visual_odometry_tpu_torch.utils.bench_config import camlidar_config  # noqa: E402
 
 SENSITIVE_PX = 1e-3
+DEPTH_APART_M = 1e-3
+SIDES = ("port", "jax_jit", "jax_eager")
 STEP_FRAMES = slice(2, None, 4)   # frames 2, 6, 10, ... (frame 1's previous image is float)
 CORRIDOR_STEP_FRAMES = slice(4, None, 4)   # frames 4, 8, ..., 48
 
@@ -191,6 +214,111 @@ def _apart(uv_a, ok_a, uv_b, ok_b) -> set:
     return set(np.nonzero(((ok_a & ok_b) & (d > SENSITIVE_PX)) | (ok_a != ok_b))[0].tolist())
 
 
+def depth_oracle(un, active, plane10, z, mask):
+    """``visual_frontend.associate_depth`` in float64 on float32 inputs: the
+    3-NN of the query (10·un, 10) by exact differences over the masked cloud
+    (the lower index first among equal distances), the determinant ratio of
+    the ray and the neighbours' plane, and the same clamps and gates.
+    Returns (depth, ok, the 3-NN indices in ascending order)."""
+    un = np.asarray(un, np.float64)
+    q = np.concatenate([10.0 * un, np.full((len(un), 1), 10.0)], axis=1)
+    valid = np.nonzero(np.asarray(mask))[0]
+    cloud = np.asarray(plane10, np.float64)
+    c = cloud[valid]
+    idx = np.empty((len(q), 3), np.int64)
+    dist = np.empty((len(q), 3))
+    for a in range(0, len(q), 64):
+        d = sum((q[a:a + 64, None, i] - c[None, :, i]) ** 2 for i in range(3))
+        sel = np.argsort(d, axis=1, kind="stable")[:, :3]
+        idx[a:a + 64] = valid[sel]
+        dist[a:a + 64] = np.take_along_axis(d, sel, axis=1)
+    zn = np.asarray(z, np.float64)[idx]
+    px = cloud[idx][..., 0] * zn / 10.0
+    py = cloud[idx][..., 1] * zn / 10.0
+    (x1, x2, x3), (y1, y2, y3), (z1, z2, z3) = px.T, py.T, zn.T
+    u, v = un[:, 0], un[:, 1]
+    num = (x1 * y2 * z3 - x1 * y3 * z2 - x2 * y1 * z3
+           + x2 * y3 * z1 + x3 * y1 * z2 - x3 * y2 * z1)
+    den = (x1 * y2 - x2 * y1 - x1 * y3 + x3 * y1 + x2 * y3 - x3 * y2
+           + u * y1 * z2 - u * y2 * z1 - v * x1 * z2 + v * x2 * z1
+           - u * y1 * z3 + u * y3 * z1 + v * x1 * z3 - v * x3 * z1
+           + u * y2 * z3 - u * y3 * z2 - v * x2 * z3 + v * x3 * z2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        s = num / np.where(np.abs(den) > 1e-12, den, 1e-12)
+    zmin, zmax = zn.min(axis=1), zn.max(axis=1)
+    s = np.where(np.isfinite(s), s, z1)
+    s = np.where(s - zmax > 0.2, zmax, s)
+    s = np.where(s - zmin < -0.2, zmin, s)
+    ok = (np.asarray(active) & (dist[:, 0] < 0.5) & np.isfinite(dist).all(axis=1)
+          & (zmax - zmin <= 2.0) & (s > 0))
+    return np.where(ok, s, 0.0), ok, np.sort(idx, axis=1)
+
+
+def judge_depths(depth, ok, idx, active, oracle) -> tuple[dict, np.ndarray]:
+    """One side's ``associate_depth`` (its depths, ok flags and 3-NN
+    indices) against ``depth_oracle``'s on the same query: (i) active
+    features whose 3-NN set differs, (ii) the depth error on equal sets
+    where both are ok, (iii) the ok flags that differ, and the depths more
+    than ``DEPTH_APART_M`` off split into neighbour flips and rounding.
+    Returns the record and (ii)'s signed errors."""
+    d64, ok64, idx64 = oracle
+    same = (np.sort(np.asarray(idx), axis=1) == idx64).all(axis=1)
+    ok = np.asarray(ok)
+    both = ok & ok64
+    err = np.asarray(depth, np.float64) - d64
+    e = err[same & both]
+    apart = both & (np.abs(err) > DEPTH_APART_M)
+    rec = {"nn_set_differs": int((np.asarray(active) & ~same).sum()),
+           "equal_sets_ok": int(e.size),
+           "depth_err_median_m": float(np.median(np.abs(e))) if e.size else 0.0,
+           "depth_err_p99_m": float(np.quantile(np.abs(e), 0.99)) if e.size else 0.0,
+           "depth_err_signed_mean_m": float(e.mean()) if e.size else 0.0,
+           "ok_differs": int((ok != ok64).sum())}
+    for name, sel in (("flip", apart & ~same), ("rounding", apart & same)):
+        rec[f"apart_{name}"] = int(sel.sum())
+        rec[f"apart_{name}_max_m"] = float(np.abs(err[sel]).max()) if sel.any() else 0.0
+    return rec, e
+
+
+def lean(xs) -> dict:
+    """A series of signed lateral differences: sum, mean, standard error,
+    the count below zero and the Wilcoxon signed-rank p (zeros dropped)."""
+    x = np.asarray(xs, np.float64)
+    p = float(sstats.wilcoxon(x).pvalue) if np.count_nonzero(x) > 1 else 1.0
+    return {"n": int(x.size), "sum_m": float(x.sum()), "mean_m": float(x.mean()),
+            "sem_m": float(x.std(ddof=1) / np.sqrt(x.size)) if x.size > 1 else 0.0,
+            "negative": int((x < 0).sum()), "wilcoxon_p": p}
+
+
+def summarize(rows: list, errors: dict) -> dict:
+    """The corridor's one-line summary: each side's lateral lean (its step,
+    and its chain on JAX's tracks, against JAX jitted's and against the
+    ground truth) and the totals of the oracle's (i)-(iii)."""
+    out = {}
+    for key in ("step_vs_jit", "step_vs_gt", "tracks_vs_jit", "tracks_vs_gt"):
+        out[key] = {side: lean([r[key][side][0] for r in rows]) for side in rows[0][key]}
+    tot = {}
+    for side in SIDES:
+        recs = [r["oracle"][side] for r in rows]
+        e = np.concatenate(errors[side]) if errors[side] else np.zeros(0)
+        tot[side] = {k: sum(rec[k] for rec in recs) for k in (
+            "nn_set_differs", "equal_sets_ok", "ok_differs", "apart_flip", "apart_rounding")}
+        tot[side].update(
+            apart_flip_max_m=max(rec["apart_flip_max_m"] for rec in recs),
+            apart_rounding_max_m=max(rec["apart_rounding_max_m"] for rec in recs),
+            depth_err_median_m=float(np.median(np.abs(e))) if e.size else 0.0,
+            depth_err_p99_m=float(np.quantile(np.abs(e), 0.99)) if e.size else 0.0,
+            depth_err_signed_mean_m=float(e.mean()) if e.size else 0.0)
+    out["oracle"] = tot
+    return out
+
+
+def _gt_camera_steps(seq, n):
+    """The true T_cur_prev translation of the camera at frames 1..n."""
+    cams = [synthetic.camera_from_velodyne_pose(*seq.pose(k)) for k in range(n + 1)]
+    return [None] + [cams[k][0].T @ (cams[k - 1][1] - cams[k][1]) for k in range(1, n + 1)]
+
+
 def corridor(n_frames: int) -> dict:
     with open(os.path.join(HERE, "jax_reference_camlidar.json")) as f:
         ref = json.load(f)
@@ -214,6 +342,15 @@ def corridor(n_frames: int) -> dict:
             reverse_affine=v.lk_reverse_affine))
         gates = jax.jit(jvf.depth_gates)
         solve = jax.jit(jvf.solve_pose, static_argnames=("cfg",))
+        assoc = jax.jit(jvf.associate_depth)
+
+        def nn3(un, dc):    # associate_depth's 3-NN, as it computes the query
+            q = jnp.concatenate([10.0 * un, jnp.full((un.shape[0], 1), 10.0, un.dtype)], axis=-1)
+            return jknn.knn(q, dc.plane10, dc.mask, 3)[0]
+
+        nn3_jit = jax.jit(nn3)
+        gt_steps = _gt_camera_steps(seq, n_frames)
+        errors = {side: [] for side in SIDES}
         for k in range(1, n_frames + 1):
             st = chain.state
             pyr = chain.pyramid(k)
@@ -231,6 +368,9 @@ def corridor(n_frames: int) -> dict:
             _, p_rel, p_n = vf.chunk_frame_step(
                 ps, torch.from_numpy(chain.imgs8[k]), torch.from_numpy(chain.clouds[k]),
                 torch.from_numpy(chain.masks[k]), tcam_, tcfg.visual)
+            with jax.disable_jit():     # JAX's frame step one operation at a time
+                _, e_rel, _ = jvf.chunk_frame_step(st, jnp.asarray(chain.imgs8[k]),
+                                                   chain.clouds[k], chain.masks[k], chain.cam, v)
             j_rel, j_n = chain.step()
             # the stages after tracking, both fed JAX's tracks: the depth
             # gates, then the pose solve fed JAX's gates
@@ -246,6 +386,33 @@ def corridor(n_frames: int) -> dict:
             g_rel = vf.solve_pose(ps.warm_rel, *(torch.from_numpy(np.array(x)) for x in jg[1:]),
                                   tcfg.visual)
             jg_rel = solve(st.warm_rel, *jg[1:], v)
+            # each side's gates and solve on JAX's tracks
+            pg_rel = vf.solve_pose(ps.warm_rel, *pg[1:], tcfg.visual)
+            with jax.disable_jit():
+                je_rel = jvf.solve_pose(st.warm_rel, *je[1:], v)
+            # each side's associate_depth on one query, against float64
+            un, act = np.asarray(jg[1]), np.asarray(jg[0])
+            oracle = depth_oracle(un, act, *(np.asarray(x) for x in st.prev_dc))
+            tun, tact = torch.from_numpy(un), torch.from_numpy(act)
+            q = torch.cat([10.0 * tun, torch.full_like(tun[:, :1], 10.0)], dim=-1)
+            with jax.disable_jit():
+                eager_assoc = (*jvf.associate_depth(jnp.asarray(un), jnp.asarray(act),
+                                                    st.prev_dc),
+                               nn3(jnp.asarray(un), st.prev_dc))
+            judged = {}
+            for side, (dep, okd, idx) in (
+                    ("port", (*(x.numpy() for x in vf.associate_depth(tun, tact, ps.prev_dc)),
+                              tknn.knn(q, ps.prev_dc.plane10, ps.prev_dc.mask, 3)[0].numpy())),
+                    ("jax_jit", (*assoc(jnp.asarray(un), jnp.asarray(act), st.prev_dc),
+                                 nn3_jit(jnp.asarray(un), st.prev_dc))),
+                    ("jax_eager", eager_assoc)):
+                judged[side], e = judge_depths(np.asarray(dep), np.asarray(okd), np.asarray(idx),
+                                               act, oracle)
+                errors[side].append(e)
+            gt_t = gt_steps[k]
+
+            def signed(a, b):
+                return (np.asarray(a, np.float64) - np.asarray(b, np.float64)).tolist()
             apart = _apart(p_uv, p_ok, j_uv, j_ok)
             j_sens = _apart(jn_uv, jn_ok, j_uv, j_ok)
             p_sens = _apart(pn_uv, pn_ok, p_uv, p_ok)
@@ -273,9 +440,24 @@ def corridor(n_frames: int) -> dict:
                 "step_d_t": (p_rel.t.numpy() - np.asarray(j_rel.t)).astype(float).tolist(),
                 "jax_step_t": np.asarray(j_rel.t).astype(float).tolist(),
                 "tracked": [j_n, int(p_n)],
+                # signed translations: each side's step, and its gates and
+                # solve on JAX's jitted tracks, against JAX jitted's and the truth
+                "step_vs_jit": {"port": signed(p_rel.t.numpy(), j_rel.t),
+                                "jax_eager": signed(e_rel.t, j_rel.t)},
+                "step_vs_gt": {"port": signed(p_rel.t.numpy(), gt_t),
+                               "jax_jit": signed(j_rel.t, gt_t),
+                               "jax_eager": signed(e_rel.t, gt_t)},
+                "tracks_vs_jit": {"port": signed(pg_rel.t.numpy(), jg_rel.t),
+                                  "jax_eager": signed(je_rel.t, jg_rel.t)},
+                "tracks_vs_gt": {"port": signed(pg_rel.t.numpy(), gt_t),
+                                 "jax_jit": signed(jg_rel.t, gt_t),
+                                 "jax_eager": signed(je_rel.t, gt_t)},
+                "oracle": judged,
             })
             print(json.dumps(rows[-1]), flush=True)
-    return {"frames": rows}
+    summary = summarize(rows, errors)
+    print(json.dumps({"summary": summary}), flush=True)
+    return {"frames": rows, "summary": summary}
 
 
 def _keep_states(name, scans, images, channels, keep, arrays) -> None:

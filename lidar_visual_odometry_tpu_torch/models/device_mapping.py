@@ -31,6 +31,7 @@ from ..ops.pointcloud import PointBatch, voxel_downsample
 from ..ops.voxel_map import voxel_merge
 from ..utils.config import LidarConfig, MappingConfig, OdometryConfig
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 from .lidar_mapping import solve_map_pose
 from .lidar_odometry import OdometryState, dequantize, odometry_step
 from .scan_registration import register_polar_impl, register_scan_impl
@@ -82,26 +83,32 @@ def device_mapping_impl(
     """One mapped frame: downsample → solve → insert. Returns (new state,
     refined world pose). On the first frame the map is empty, the solve takes
     a zero step and the frame seeds the map."""
-    corner_ds = voxel_downsample(corner_pts, corner_mask, leaf=cfg.corner_leaf,
-                                 max_out=cfg.corner_slot)
-    surf_ds = voxel_downsample(surf_pts, surf_mask, leaf=cfg.surf_leaf, max_out=cfg.surf_slot)
-    refined = solve_map_pose(
-        corner_ds, surf_ds,
-        PointBatch(state.corner, state.corner_mask), PointBatch(state.surf, state.surf_mask),
-        se3.se3_compose(state.correction, odom_pose), cfg,
-    )
-    new_corner = voxel_merge(
-        state.corner, state.corner_mask, se3.se3_apply(refined, corner_ds.xyz), corner_ds.mask,
-        refined.t, leaf=cfg.corner_leaf, cap=cfg.map_corner_cap, drop_radius=cfg.map_drop_radius,
-    )
-    new_surf = voxel_merge(
-        state.surf, state.surf_mask, se3.se3_apply(refined, surf_ds.xyz), surf_ds.mask,
-        refined.t, leaf=cfg.surf_leaf, cap=cfg.map_surf_cap, drop_radius=cfg.map_drop_radius,
-    )
-    new_state = DeviceMapState(
-        new_corner.xyz, new_corner.mask, new_surf.xyz, new_surf.mask,
-        se3.se3_compose(refined, se3.se3_inverse(odom_pose)),
-    )
+    with span("mapping"):
+        with span("mapping.filter"):
+            corner_ds = voxel_downsample(corner_pts, corner_mask, leaf=cfg.corner_leaf,
+                                         max_out=cfg.corner_slot)
+            surf_ds = voxel_downsample(surf_pts, surf_mask, leaf=cfg.surf_leaf,
+                                       max_out=cfg.surf_slot)
+        refined = solve_map_pose(
+            corner_ds, surf_ds,
+            PointBatch(state.corner, state.corner_mask), PointBatch(state.surf, state.surf_mask),
+            se3.se3_compose(state.correction, odom_pose), cfg,
+        )
+        with span("mapping.merge"):
+            new_corner = voxel_merge(
+                state.corner, state.corner_mask, se3.se3_apply(refined, corner_ds.xyz),
+                corner_ds.mask, refined.t, leaf=cfg.corner_leaf, cap=cfg.map_corner_cap,
+                drop_radius=cfg.map_drop_radius,
+            )
+            new_surf = voxel_merge(
+                state.surf, state.surf_mask, se3.se3_apply(refined, surf_ds.xyz), surf_ds.mask,
+                refined.t, leaf=cfg.surf_leaf, cap=cfg.map_surf_cap,
+                drop_radius=cfg.map_drop_radius,
+            )
+        new_state = DeviceMapState(
+            new_corner.xyz, new_corner.mask, new_surf.xyz, new_surf.mask,
+            se3.se3_compose(refined, se3.se3_inverse(odom_pose)),
+        )
     return new_state, refined
 
 
@@ -119,18 +126,21 @@ def _slam_scan(odo_state: OdometryState, map_state: DeviceMapState, n_frames: in
     state, map state, odometry poses (K,), mapped poses (K,))."""
     odom, mapped = [], []
     for i in range(n_frames):
-        feats = feats_of(i)
-        init = None if init_of is None else init_of(i, odo_state)
-        odo_state, pose_w = odometry_step(odo_state, feats, odom_cfg, init_rel=init)
-        if map_skip <= 1 or (start_idx + i) % map_skip == 0:
-            map_state, refined = device_mapping_impl(
-                map_state, feats.less_sharp.xyz, feats.less_sharp.mask,
-                feats.less_flat.xyz, feats.less_flat.mask, pose_w, map_cfg,
-            )
-        else:
-            refined = _apply_correction(map_state.correction, pose_w)
-        odom.append(pose_w)
-        mapped.append(refined)
+        with span("frame"):
+            with span("features"):
+                feats = feats_of(i)
+            init = None if init_of is None else init_of(i, odo_state)
+            with span("odometry"):
+                odo_state, pose_w = odometry_step(odo_state, feats, odom_cfg, init_rel=init)
+            if map_skip <= 1 or (start_idx + i) % map_skip == 0:
+                map_state, refined = device_mapping_impl(
+                    map_state, feats.less_sharp.xyz, feats.less_sharp.mask,
+                    feats.less_flat.xyz, feats.less_flat.mask, pose_w, map_cfg,
+                )
+            else:
+                refined = _apply_correction(map_state.correction, pose_w)
+            odom.append(pose_w)
+            mapped.append(refined)
 
     def stack(poses):
         return se3.Pose(torch.stack([p.q for p in poses]), torch.stack([p.t for p in poses]))

@@ -44,6 +44,7 @@ from ..ops.features import ScanFeatures
 from ..ops.pointcloud import PointBatch, voxel_downsample
 from ..utils.config import MappingConfig
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 
 C_TILE = 512  # candidate chunk of the windowed search (the reference's c_tile)
 
@@ -154,7 +155,8 @@ def solve_map_pose(
     pose = init_pose
     if cfg.outer_tol <= 0.0:
         for _ in range(cfg.outer_iters):
-            pose = outer_once(pose)
+            with span("mapping.round"):
+                pose = outer_once(pose)
         return pose
 
     # Adaptive re-association: at least two rounds, then stop as soon as one
@@ -164,10 +166,14 @@ def solve_map_pose(
         if i >= 2:
             dq = torch.max(torch.abs(pose.q - prev.q * torch.sign(torch.sum(pose.q * prev.q))))
             dt = torch.max(torch.abs(pose.t - prev.t))
-            if not bool((2.0 * dq > cfg.outer_tol) | (dt > cfg.outer_tol)):
+            moved = (2.0 * dq > cfg.outer_tol) | (dt > cfg.outer_tol)
+            with span("sync", site="mapping.exit"):
+                moved = bool(moved)
+            if not moved:
                 break
         prev = pose
-        pose = outer_once(pose)
+        with span("mapping.round"):
+            pose = outer_once(pose)
     return pose
 
 

@@ -38,6 +38,7 @@ from ..ops import pointcloud as pc
 from ..ops.features import FeatureCloud, ScanFeatures
 from ..utils.config import LidarConfig, OdometryConfig
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 from .scan_registration import register_polar_impl, register_scan_impl
 
 # Host-to-device quantisation of raw scans and camera-frame clouds: uint16 at
@@ -137,7 +138,8 @@ def scan_to_scan_impl(
     pose = init_rel
     if cfg.outer_tol <= 0.0:
         for _ in range(cfg.outer_iters):
-            pose = outer_once(pose)
+            with span("odometry.round"):
+                pose = outer_once(pose)
         return pose
 
     # Adaptive re-association: at least two rounds, then stop as soon as one
@@ -147,10 +149,14 @@ def scan_to_scan_impl(
         if i >= 2:
             dq = torch.max(torch.abs(pose.q - prev.q * torch.sign(torch.sum(pose.q * prev.q))))
             dt = torch.max(torch.abs(pose.t - prev.t))
-            if not bool((2.0 * dq > cfg.outer_tol) | (dt > cfg.outer_tol)):
+            moved = (2.0 * dq > cfg.outer_tol) | (dt > cfg.outer_tol)
+            with span("sync", site="odometry.exit"):
+                moved = bool(moved)
+            if not moved:
                 break
         prev = pose
-        pose = outer_once(pose)
+        with span("odometry.round"):
+            pose = outer_once(pose)
     return pose
 
 
@@ -210,12 +216,7 @@ def dequantize(qpts: torch.Tensor) -> torch.Tensor:
 def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host array → tensor on ``dev``; uint16 travels as int16 with the same
     bits (``dequantize``), through pinned memory to a card."""
-    if a.dtype == np.uint16:
-        a = a.view(np.int16)
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
+    return pc.to_device(a.view(np.int16) if a.dtype == np.uint16 else a, dev)
 
 
 def _run_frames(state: OdometryState, n_frames: int, feats_of, odom_cfg: OdometryConfig,
@@ -224,10 +225,14 @@ def _run_frames(state: OdometryState, n_frames: int, feats_of, odom_cfg: Odometr
     ``init_of(k, state)`` where given (else the last relative pose)."""
     qs, ts = [], []
     for k in range(n_frames):
-        init = None if init_of is None else init_of(k, state)
-        state, pose_w = odometry_step(state, feats_of(k), odom_cfg, init_rel=init)
-        qs.append(pose_w.q)
-        ts.append(pose_w.t)
+        with span("frame"):
+            with span("features"):
+                feats = feats_of(k)
+            init = None if init_of is None else init_of(k, state)
+            with span("odometry"):
+                state, pose_w = odometry_step(state, feats, odom_cfg, init_rel=init)
+            qs.append(pose_w.q)
+            ts.append(pose_w.t)
     return state, se3.Pose(torch.stack(qs), torch.stack(ts))
 
 

@@ -37,6 +37,7 @@ from ..ops import se3
 from ..utils import checkpoint as ckpt
 from ..utils.config import SystemConfig
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 from . import device_mapping as dm
 from . import lidar_mapping as lm
 from . import lidar_odometry as lo
@@ -62,26 +63,31 @@ def _pack_polar(batch, lcfg, ingest: str, dev: torch.device) -> torch.Tensor:
     """A chunk of raw scans as polar images (int32 cells) on ``dev``, packed
     by the native packer (``data/native_pack.py``), as the JAX package's
     ``run_chunked`` polar ingests pack them: the reference's bits."""
-    imgs = native_pack.pack_polar_chunk(
-        batch, n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
-        max_range=lcfg.max_range, n_frames=len(batch), channels=1 if ingest == "polar2" else 2)
-    return pc.polar_image_to_tensor(imgs, dev)
+    with span("pack"):
+        imgs = native_pack.pack_polar_chunk(
+            batch, n_scans=lcfg.n_scans, width=lcfg.azimuth_bins, min_range=lcfg.min_range,
+            max_range=lcfg.max_range, n_frames=len(batch),
+            channels=1 if ingest == "polar2" else 2)
+    with span("upload"):
+        return pc.polar_image_to_tensor(imgs, dev)
 
 
 def _quantize(batch, capacity: int, dev: torch.device):
     """A chunk of raw scans as (K, capacity, 3) uint16 codes (int16 on the
     device, the same bits) and (K,) int32 counts on ``dev``."""
-    qs = np.zeros((len(batch), capacity, 3), np.uint16)
-    counts = np.zeros((len(batch),), np.int32)
-    for i, pts in enumerate(batch):
-        qs[i], counts[i] = lo.quantize_scan(np.asarray(pts), capacity)
-    return lo.upload(qs, dev), lo.upload(counts, dev)
+    with span("pack"):
+        qs = np.zeros((len(batch), capacity, 3), np.uint16)
+        counts = np.zeros((len(batch),), np.int32)
+        for i, pts in enumerate(batch):
+            qs[i], counts[i] = lo.quantize_scan(np.asarray(pts), capacity)
+    with span("upload"):
+        return lo.upload(qs, dev), lo.upload(counts, dev)
 
 
 def _register_raw(scan, capacity: int, lcfg, dev: torch.device):
     """One raw (n, ≥3) scan padded to ``capacity`` and registered on ``dev``."""
     xyz, mask = pc.pad_points(np.asarray(scan)[:, :3], capacity)
-    return sr.register_scan(xyz, mask, lcfg, device=dev)
+    return sr.register_scan_impl(pc.to_device(xyz, dev), pc.to_device(mask, dev), lcfg)
 
 
 class OdometryPipeline:
@@ -127,41 +133,53 @@ class OdometryPipeline:
             ingest = "uint16" if quantize else "float"
         _check_ingest(ingest)
         dev, lcfg, ocfg = self.device, self.cfg.lidar, self.cfg.odometry
-        if resume:
-            start, state, traj_q, traj_t = ckpt.load_checkpoint(checkpoint_path, device=dev)
-        else:
-            state = lo.init_state(_register_raw(scans[0], self.capacity, lcfg, dev).features)
-            start, traj_q, traj_t = 1, IDENT_Q, ZERO_T
-        rec = ckpt.RunRecord(checkpoint_path, checkpoint_every, stop_after, start,
-                             {"q": traj_q, "t": traj_t})
-
-        # timed from the first frame computed, as the reference times it
-        t0 = time.perf_counter()
-        n = len(scans)
-        for s in range(start, n, chunk):
-            batch = scans[s:s + chunk]
-            if ingest.startswith("polar"):
-                state, poses = lo.odometry_chunk_polar(
-                    state, _pack_polar(batch, lcfg, ingest, dev), lcfg, ocfg, device=dev)
-            elif ingest == "uint16":
-                state, poses = lo.odometry_chunk_quantized(
-                    state, *_quantize(batch, self.capacity, dev), lcfg, ocfg)
+        with span("sequence"):
+            if resume:
+                with span("sync", site="checkpoint"):
+                    start, state, traj_q, traj_t = ckpt.load_checkpoint(checkpoint_path,
+                                                                        device=dev)
             else:
-                padded = [pc.pad_points(np.asarray(p)[:, :3], self.capacity) for p in batch]
-                state, poses = lo.odometry_chunk(
-                    state, lo.upload(np.stack([p for p, _ in padded]), dev),
-                    lo.upload(np.stack([m for _, m in padded]), dev), lcfg, ocfg)
-            rec.append(q=poses.q, t=poses.t)
-            next_s = min(s + chunk, n)
-            if rec.snapshot_due(next_s):
-                ckpt.save_checkpoint(checkpoint_path, frame_idx=next_s, odom_state=state,
-                                     trajectory_q=rec.host("q")[:next_s],
-                                     trajectory_t=rec.host("t")[:next_s])
-            if rec.stops(next_s):
-                n = next_s
-                break
-        qs, ts = rec.host("q")[:n], rec.host("t")[:n]
-        wall = time.perf_counter() - t0
+                with span("features"):
+                    feats0 = _register_raw(scans[0], self.capacity, lcfg, dev).features
+                state = lo.init_state(feats0)
+                start, traj_q, traj_t = 1, IDENT_Q, ZERO_T
+            rec = ckpt.RunRecord(checkpoint_path, checkpoint_every, stop_after, start,
+                                 {"q": traj_q, "t": traj_t})
+
+            # timed from the first frame computed, as the reference times it
+            t0 = time.perf_counter()
+            n = len(scans)
+            for s in range(start, n, chunk):
+                with span("chunk"):
+                    batch = scans[s:s + chunk]
+                    if ingest.startswith("polar"):
+                        state, poses = lo.odometry_chunk_polar(
+                            state, _pack_polar(batch, lcfg, ingest, dev), lcfg, ocfg, device=dev)
+                    elif ingest == "uint16":
+                        state, poses = lo.odometry_chunk_quantized(
+                            state, *_quantize(batch, self.capacity, dev), lcfg, ocfg)
+                    else:
+                        with span("pack"):
+                            padded = [pc.pad_points(np.asarray(p)[:, :3], self.capacity)
+                                      for p in batch]
+                        with span("upload"):
+                            pts = lo.upload(np.stack([p for p, _ in padded]), dev)
+                            masks = lo.upload(np.stack([m for _, m in padded]), dev)
+                        state, poses = lo.odometry_chunk(state, pts, masks, lcfg, ocfg)
+                    rec.append(q=poses.q, t=poses.t)
+                    next_s = min(s + chunk, n)
+                    if rec.snapshot_due(next_s):
+                        with span("sync", site="checkpoint"):
+                            ckpt.save_checkpoint(checkpoint_path, frame_idx=next_s,
+                                                 odom_state=state,
+                                                 trajectory_q=rec.host("q")[:next_s],
+                                                 trajectory_t=rec.host("t")[:next_s])
+                    if rec.stops(next_s):
+                        n = next_s
+                        break
+            with span("sync", site="readback"):
+                qs, ts = rec.host("q")[:n], rec.host("t")[:n]
+            wall = time.perf_counter() - t0
         done = max(n - start, 1)
         if progress:
             print(f"{n} frames ({done} computed) in {wall:.2f}s → {done / wall:.1f} fps")
@@ -240,48 +258,56 @@ class FullPipeline:
         if map_skip is None:
             map_skip = self.cfg.odometry.skip_frame_num
         dev, lcfg = self.device, self.cfg.lidar
-        if resume:
-            start, odo_state, traj_q, traj_t = ckpt.load_checkpoint(checkpoint_path, device=dev)
-            map_state = ckpt.load_map_state(checkpoint_path, dev)
-            data = np.load(checkpoint_path)
-            first = {"q": traj_q, "t": traj_t, "map_q": data["traj_map_q"],
-                     "map_t": data["traj_map_t"]}
-        else:
-            odo_state = lo.init_state(
-                _register_raw(scans[0], self.capacity, lcfg, dev).features)
-            map_state = dm.init_state(self.cfg.mapping, dev)
-            start = 1
-            first = {"q": IDENT_Q, "t": ZERO_T, "map_q": IDENT_Q, "map_t": ZERO_T}
-        rec = ckpt.RunRecord(checkpoint_path, checkpoint_every, stop_after, start, first)
-        cfgs = (lcfg, self.cfg.odometry, self.cfg.mapping)
-
-        # timed from the first frame computed, as the reference times it
-        t0 = time.perf_counter()
-        n = len(scans)
-        for s in range(start, n, chunk):
-            batch = scans[s:s + chunk]
-            if ingest.startswith("polar"):
-                odo_state, map_state, op, mp = dm.slam_chunk_polar(
-                    odo_state, map_state, _pack_polar(batch, lcfg, ingest, dev), *cfgs,
-                    start_idx=s, map_skip=map_skip, device=dev)
+        with span("sequence"):
+            if resume:
+                with span("sync", site="checkpoint"):
+                    start, odo_state, traj_q, traj_t = ckpt.load_checkpoint(checkpoint_path,
+                                                                            device=dev)
+                    map_state = ckpt.load_map_state(checkpoint_path, dev)
+                    data = np.load(checkpoint_path)
+                    first = {"q": traj_q, "t": traj_t, "map_q": data["traj_map_q"],
+                             "map_t": data["traj_map_t"]}
             else:
-                odo_state, map_state, op, mp = dm.slam_chunk_quantized(
-                    odo_state, map_state, *_quantize(batch, self.capacity, dev), *cfgs,
-                    start_idx=s, map_skip=map_skip)
-            rec.append(q=op.q, t=op.t, map_q=mp.q, map_t=mp.t)
-            next_s = min(s + chunk, n)
-            if rec.snapshot_due(next_s):
-                ckpt.save_checkpoint(
-                    checkpoint_path, frame_idx=next_s, odom_state=odo_state,
-                    trajectory_q=rec.host("q")[:next_s], trajectory_t=rec.host("t")[:next_s],
-                    map_state=map_state,
-                    extra={"traj_map_q": rec.host("map_q")[:next_s],
-                           "traj_map_t": rec.host("map_t")[:next_s]})
-            if rec.stops(next_s):
-                n = next_s
-                break
-        odom_q, odom_t, map_q, map_t = (rec.host(k)[:n] for k in ("q", "t", "map_q", "map_t"))
-        wall = time.perf_counter() - t0
+                with span("features"):
+                    feats0 = _register_raw(scans[0], self.capacity, lcfg, dev).features
+                odo_state = lo.init_state(feats0)
+                map_state = dm.init_state(self.cfg.mapping, dev)
+                start = 1
+                first = {"q": IDENT_Q, "t": ZERO_T, "map_q": IDENT_Q, "map_t": ZERO_T}
+            rec = ckpt.RunRecord(checkpoint_path, checkpoint_every, stop_after, start, first)
+            cfgs = (lcfg, self.cfg.odometry, self.cfg.mapping)
+
+            # timed from the first frame computed, as the reference times it
+            t0 = time.perf_counter()
+            n = len(scans)
+            for s in range(start, n, chunk):
+                with span("chunk"):
+                    batch = scans[s:s + chunk]
+                    if ingest.startswith("polar"):
+                        odo_state, map_state, op, mp = dm.slam_chunk_polar(
+                            odo_state, map_state, _pack_polar(batch, lcfg, ingest, dev), *cfgs,
+                            start_idx=s, map_skip=map_skip, device=dev)
+                    else:
+                        odo_state, map_state, op, mp = dm.slam_chunk_quantized(
+                            odo_state, map_state, *_quantize(batch, self.capacity, dev), *cfgs,
+                            start_idx=s, map_skip=map_skip)
+                    rec.append(q=op.q, t=op.t, map_q=mp.q, map_t=mp.t)
+                    next_s = min(s + chunk, n)
+                    if rec.snapshot_due(next_s):
+                        with span("sync", site="checkpoint"):
+                            ckpt.save_checkpoint(
+                                checkpoint_path, frame_idx=next_s, odom_state=odo_state,
+                                trajectory_q=rec.host("q")[:next_s],
+                                trajectory_t=rec.host("t")[:next_s], map_state=map_state,
+                                extra={"traj_map_q": rec.host("map_q")[:next_s],
+                                       "traj_map_t": rec.host("map_t")[:next_s]})
+                    if rec.stops(next_s):
+                        n = next_s
+                        break
+            with span("sync", site="readback"):
+                odom_q, odom_t, map_q, map_t = (rec.host(k)[:n]
+                                                for k in ("q", "t", "map_q", "map_t"))
+            wall = time.perf_counter() - t0
         done = max(n - start, 1)
         if progress:
             print(f"odom+map(fused): {n} frames ({done} computed) in {wall:.2f}s → "

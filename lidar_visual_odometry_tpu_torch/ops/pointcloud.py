@@ -448,14 +448,24 @@ def pack_polar_chunk(
     return out
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """Host array → tensor on ``device``, without waiting for the card: a copy
+    from pageable memory drains the stream first, so the bytes go through
+    pinned memory and the copy is queued."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def polar_image_to_tensor(img: np.ndarray, device) -> torch.Tensor:
     """Upload a uint16 polar image as int32 cells on ``device``.
 
     The bytes travel as 16-bit (the image is viewed as int16 for the copy) and
     widen on the device."""
     img = np.ascontiguousarray(img, dtype=np.uint16)
-    t = torch.from_numpy(img.view(np.int16)).to(device)
-    return t.to(torch.int32) & 0xFFFF
+    return to_device(img.view(np.int16), device).to(torch.int32) & 0xFFFF
 
 
 def polar_to_compact(
@@ -472,7 +482,7 @@ def polar_to_compact(
     A single-channel image (range only) decodes at the nominal ring elevation
     and the azimuth-bin centre."""
     nominal, el_half = ring_elevations(n_scans)
-    nominal = torch.from_numpy(nominal).to(img.device)
+    nominal = to_device(nominal, img.device)
     az_q = np.pi / width / 127.0
     el_q = el_half / 127.0
 

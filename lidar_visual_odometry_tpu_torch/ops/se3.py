@@ -24,8 +24,10 @@ class Pose(NamedTuple):
 
 
 def identity_pose(device) -> Pose:
-    return Pose(torch.tensor([1.0, 0.0, 0.0, 0.0], device=device),
-                torch.zeros(3, device=device))
+    # filled on the device: a tensor built from a host list is a blocking copy
+    q = torch.zeros(4, device=device)
+    q[:1].fill_(1.0)
+    return Pose(q, torch.zeros(3, device=device))
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,7 +58,8 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    # the product by (1, −1, −1, −1), bit for bit, with no host-to-device copy
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

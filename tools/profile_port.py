@@ -7,13 +7,15 @@ path (``FullPipeline.run_chunked``, map_skip 1) and the camera path
 ``utils/bench_config.py``, and rendered 640 x 192 camera images) warms the
 pipeline up and measures:
 
-* per-stage wall time with a device synchronisation after each stage
-  (host packing, upload, polar decode, feature extraction, scan-to-scan
-  odometry; for SLAM also the mapping voxel filters, the scan-to-map solve
-  and the map merge; for cam-lidar the lidar half as one stage, then image
-  upload and pyramid, camera depth clouds, LK (kernel K6), depth
-  association, ``solve_pose`` and replenishment) and re-association rounds
-  per frame;
+* for odometry and SLAM, one unsynchronised ``run_chunked`` read by the
+  program's spans (``utils/profiler.py``): the host ms a frame of each span
+  (packing, upload, features, odometry and its rounds, mapping and its
+  filters, rounds and merge, less the ``sync`` spans inside them), the
+  syncs and their wait a frame, and the re-association rounds a frame; for
+  cam-lidar, per-stage wall time with a device synchronisation after each
+  stage (the lidar half as one stage, then image upload and pyramid, camera
+  depth clouds, LK (kernel K6), depth association, ``solve_pose`` and
+  replenishment);
 * a ``torch.profiler`` trace of one un-instrumented ``run_chunked``: device
   busy time, the device's idle share, kernel launches per frame and the
   operators that take the most device time, and the device time per call of
@@ -242,19 +244,16 @@ def main() -> int:
 
     from lidar_visual_odometry_tpu_torch import kernels
     from lidar_visual_odometry_tpu_torch.data import synthetic
-    from lidar_visual_odometry_tpu_torch.models import device_mapping as dm
-    from lidar_visual_odometry_tpu_torch.models import lidar_mapping as lm
     from lidar_visual_odometry_tpu_torch.models import lidar_odometry as lo
     from lidar_visual_odometry_tpu_torch.models import scan_registration as sr
     from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
     from lidar_visual_odometry_tpu_torch.ops import features as F
     from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
-    from lidar_visual_odometry_tpu_torch.ops import se3
-    from lidar_visual_odometry_tpu_torch.ops.voxel_map import voxel_merge
     from lidar_visual_odometry_tpu_torch.models import cam_lidar_pipeline as cl
     from lidar_visual_odometry_tpu_torch.models import visual_frontend as vf
     from lidar_visual_odometry_tpu_torch.ops import image, lk
     from lidar_visual_odometry_tpu_torch.utils.bench_config import CAM, camlidar_config
+    from lidar_visual_odometry_tpu_torch.utils import profiler
     from lidar_visual_odometry_tpu_torch.utils.config import MappingConfig, SystemConfig
 
     if not torch.cuda.is_available():
@@ -262,7 +261,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     cfg = SystemConfig()
-    lcfg, mcfg = cfg.lidar, cfg.mapping
+    lcfg = cfg.lidar
     seq = synthetic.SyntheticSequence(
         n_frames=args.frames, width=1800, speed=1.0, yaw_rate=0.004, noise=0.01
     )
@@ -281,60 +280,27 @@ def main() -> int:
         "nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     result = {"card": smi, "frames": n}
 
-    def stage_times(slam: bool):
-        """Per-stage ms/frame, synchronised after each stage, and the
-        re-association rounds per frame of each solve."""
-        stages = {}
-
-        def timed(name, fn):
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
-            return out
-
-        xyz0, mask0 = pc.pad_points(scans[0], 131072)
-        state = lo.init_state(sr.register_scan(xyz0, mask0, lcfg, device=dev).features)
-        mp = dm.init_state(mcfg, dev)
+    def span_times(run):
+        """One unsynchronised ``run()`` read by the program's spans
+        (``utils/profiler.py``): each span's host ms a frame (less the
+        ``sync`` spans inside it), the syncs and their wait a frame, and the
+        re-association rounds a frame (``kernels.launch_counts()``)."""
         kernels.reset_launch_counts()
-        for s in range(1, len(scans), 8):
-            imgs = timed("pack", lambda: pc.pack_polar_chunk(scans[s:s + 8], channels=1, **geom))
-            timgs = timed("upload", lambda: pc.polar_image_to_tensor(imgs, dev))
-            for k in range(timgs.shape[0]):
-                cs = timed("decode", lambda: pc.polar_to_compact(timgs[k], **geom))
-                feats = timed("features", lambda: sr._extract(cs, lcfg))
-                state, pose_w = timed("odometry",
-                                      lambda: lo.odometry_step(state, feats, cfg.odometry))
-                if not slam:
-                    continue
-                ls, lf_ = feats.less_sharp, feats.less_flat
-                cds, sds = timed("map_voxel_filters", lambda: (
-                    pc.voxel_downsample(ls.xyz, ls.mask, leaf=mcfg.corner_leaf,
-                                        max_out=mcfg.corner_slot),
-                    pc.voxel_downsample(lf_.xyz, lf_.mask, leaf=mcfg.surf_leaf,
-                                        max_out=mcfg.surf_slot)))
-                refined = timed("map_solve", lambda: lm.solve_map_pose(
-                    cds, sds, pc.PointBatch(mp.corner, mp.corner_mask),
-                    pc.PointBatch(mp.surf, mp.surf_mask),
-                    se3.se3_compose(mp.correction, pose_w), mcfg))
-
-                def merge():
-                    kw = dict(drop_radius=mcfg.map_drop_radius)
-                    c = voxel_merge(mp.corner, mp.corner_mask, se3.se3_apply(refined, cds.xyz),
-                                    cds.mask, refined.t, leaf=mcfg.corner_leaf,
-                                    cap=mcfg.map_corner_cap, **kw)
-                    f = voxel_merge(mp.surf, mp.surf_mask, se3.se3_apply(refined, sds.xyz),
-                                    sds.mask, refined.t, leaf=mcfg.surf_leaf,
-                                    cap=mcfg.map_surf_cap, **kw)
-                    return dm.DeviceMapState(c.xyz, c.mask, f.xyz, f.mask, se3.se3_compose(
-                        refined, se3.se3_inverse(pose_w)))
-
-                mp = timed("map_merge", merge)
+        profiler.start()
+        try:
+            run()
+        finally:
+            spans = profiler.stop()
         counts = kernels.launch_counts()
-        out = {"stage_ms_per_frame_synchronised": {k: 1e3 * v / n for k, v in stages.items()},
-               "odometry_rounds_per_frame": counts["gn_inner_loop"] / n}
-        if slam:
-            out["mapping_rounds_per_frame"] = counts["block_topk_windowed"] / 2 / n
+        s = profiler.summarise(spans)
+        frames = s["frame"]["count"]
+        sync = s.pop("sync", {"count": 0, "ms": 0.0})
+        out = {"host_ms_per_frame": {k: v["host_ms"] / frames for k, v in s.items()},
+               "syncs_per_frame": sync["count"] / frames,
+               "sync_wait_ms_per_frame": sync["ms"] / frames,
+               "odometry_rounds_per_frame": counts["gn_inner_loop"] / frames}
+        if "mapping" in s:
+            out["mapping_rounds_per_frame"] = counts["block_topk_windowed"] / 2 / frames
         return out
 
     def camlidar_stage_times():
@@ -430,7 +396,8 @@ def main() -> int:
     if "odometry" in paths:
         OdometryPipeline(cfg, device=dev).run_chunked(scans, chunk=8, ingest="polar2")   # warm
         torch.cuda.synchronize()
-        r = stage_times(slam=False)
+        r = span_times(lambda: OdometryPipeline(cfg, device=dev).run_chunked(
+            scans, chunk=8, ingest="polar2"))
         # the less-flat voxel filter's share of feature extraction
         cs = pc.polar_to_compact(pc.polar_image_to_tensor(
             pc.pack_polar_chunk(scans[1:2], channels=1, **geom), dev)[0], **geom)
@@ -449,7 +416,8 @@ def main() -> int:
         FullPipeline(cfg, device=dev).run_chunked(scans, chunk=8, map_skip=1,
                                                   ingest="polar2")   # warm
         torch.cuda.synchronize()
-        r = stage_times(slam=True)
+        r = span_times(lambda: FullPipeline(cfg, device=dev).run_chunked(
+            scans, chunk=8, map_skip=1, ingest="polar2"))
         torch.cuda.reset_peak_memory_stats()
         r.update(_trace(lambda: FullPipeline(cfg, device=dev).run_chunked(
             scans, chunk=8, map_skip=1, ingest="polar2")[1].positions, n))

@@ -31,6 +31,9 @@ Phase 1  holds each kernel against its plain PyTorch version on the card, at
          iteration's cost is on record) and K6 (its four calls) are timed so
          too; K6 must give its plain version's outputs bit for bit, K3 its
          plain version's pose within 1e-4 and the same bits on a second call.
+         K9 (the feature selection, which replaces no TPU kernel) runs on
+         frame 9's compacted scan, timed in alternating rounds with its plain
+         version, whose outputs it must give bit for bit.
 Phase 2  drives the odometry path at full width: ``OdometryPipeline(SystemConfig(),
          device="cuda").run_chunked(scans, chunk=8, ingest="polar2")`` on the
          48-frame synthetic HDL-64 corridor (64 rings x 2048 azimuth bins), one
@@ -205,9 +208,9 @@ Phase 14 runs ``scripts/bench_scaling_torch.py`` (the distributed odometry,
          (odometry, mapping) and 1e-3 m (BA) of the one rank's, K2 launched
          in each fleet.
 
-Prints one JSON line with all ten kernels' numbers, K7's two output forms in
-two rows (launches counted on the
-path that runs the kernel: phase 2 for K1-K3, phase 3 for the flat K1 and K4,
+Prints one JSON line with all eleven kernels' numbers, K7's two output forms
+in two rows (launches counted on the
+path that runs the kernel: phase 2 for K1-K3 and K9, phase 3 for the flat K1 and K4,
 phase 3b for K5, phase 4 for K6, phase 5 for K7, K8 and K5p), the nvidia-smi
 line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result line,
@@ -1024,6 +1027,57 @@ def phase1_topk_coords_packed(maps, queries, mcfg, packed):
         "shapes": f"one mapping round, k {k}: " + ", ".join(shapes),
         "tolerance": "exact (atol 0), identical indices" + ("" if packed else " and coordinates"),
     }
+
+
+def phase1_feature_select(scans, dev):
+    """K9 on the corridor's frame 9 at the odometry path's shapes (64 rings x
+    2048 bins, ``LidarConfig()``'s selection), timed against its plain
+    version in alternating rounds, then held to it bit for bit."""
+    import torch
+
+    from lidar_visual_odometry_tpu_torch.kernels import features as kfeat
+    from lidar_visual_odometry_tpu_torch.ops import features as F
+    from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
+    from lidar_visual_odometry_tpu_torch.utils.config import LidarConfig
+
+    L = LidarConfig()
+    pts = torch.from_numpy(np.asarray(scans[MAP_FRAMES], np.float32)).to(dev)
+    cs = pc.build_compact_scan(pts, torch.ones(len(pts), dtype=torch.bool, device=dev),
+                               n_scans=L.n_scans, width=L.azimuth_bins,
+                               min_range=L.min_range, max_range=L.max_range)
+    curv, eligible = F.curvature(cs)
+    reach_l, reach_r = F._suppression_reach(cs)
+    args = (curv, eligible & cs.valid, reach_l, reach_r, cs.count)
+    R, W = curv.shape
+    S, K, Fl = L.n_sectors, L.max_less_sharp_per_sector, L.max_flat_per_sector
+    kw = dict(n_sectors=S, max_less_sharp=K, max_flat=Fl, edge_gate=L.curvature_edge_min,
+              surf_gate=L.curvature_surf_max)
+    ms, plain_ms = _time_alternating_ms(
+        (lambda: kfeat.select_features(*args, **kw),
+         lambda: kfeat.select_features_plain(*args, **kw)), (200, 5))
+    got = kfeat.select_features(*args, **kw)
+    want = kfeat.select_features_plain(*args, **kw)
+    torch.cuda.synchronize()
+    mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
+    if mismatches:
+        raise AssertionError(f"feature_select differs from its plain version in {mismatches} "
+                             "outputs")
+    # each input read once (curvature, availability, two reaches, counts),
+    # each output written once (picks int64 and gates, the corner labels)
+    n_bytes = R * W * (4 + 1 + 4 + 4) + 4 * R + R * S * (K + Fl) * 9 + R * W
+    bound, by = _bound_ms(n_bytes, 0)
+    return dict(
+        name="feature_select", route="cuda",
+        source="lidar_visual_odometry_tpu_torch/csrc/features.cu",
+        replaces="none: lidar_visual_odometry_tpu/ops/features.py:142-189, a lax.scan XLA "
+                 "compiled",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, output_mismatches=mismatches,
+        accepted_picks=int(got[1].sum()) + int(got[3].sum()),
+        shapes=f"({R},{W}), {S} sectors x ({K} corners + {Fl} flats): "
+               f"{S * (K + Fl)} dependent picks a ring",
+        tolerance="bit for bit",
+    )
 
 
 def _lk_ops(win: int, affine: bool, fixed: bool, iters_run):
@@ -2455,6 +2509,7 @@ def main() -> int:
                lambda: phase1_topk_windowed(maps, queries, mcfg),
                lambda: phase1_topk_dense(maps, queries, mcfg),
                lambda: phase1_lk(images, dev),
+               lambda: phase1_feature_select(scans, dev),
                lambda: phase1_ring_top2(assoc, coords=False),
                lambda: phase1_ring_top2(assoc, coords=True),
                lambda: phase1_topk_coords_packed(maps, queries, mcfg, packed=False),
@@ -2463,7 +2518,8 @@ def main() -> int:
         results.append(r)
         extra = "".join(f", {key} {r[key]:.4f}" for key in (
             "skip_share", "cdist_topk_two_calls_ms", "cdist_topk_gather_three_calls_ms") if key in r)
-        extra += "".join(f", {key} {r[key]}" for key in ("output_mismatches", "ms_1_iteration")
+        extra += "".join(f", {key} {r[key]}" for key in ("output_mismatches", "ms_1_iteration",
+                                                          "accepted_picks")
                          if key in r)
         print(f"phase 1: {r['name']} [{r['shapes']}] max_abs_err {r['max_abs_err']:.3g} "
               f"({r['tolerance']}); kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
@@ -2497,7 +2553,8 @@ def main() -> int:
           f"{peak / 2**20:.1f} MiB, launches {counts}", flush=True)
     if res.positions.shape != (N_FRAMES, 3) or not np.isfinite(res.positions).all():
         raise AssertionError(f"bad trajectory: shape {res.positions.shape}")
-    odometry_path = ("segment_sum_batched", "associate_kernel", "gn_inner_loop")
+    odometry_path = ("segment_sum_batched", "associate_kernel", "gn_inner_loop",
+                     "feature_select")
     if min(counts[name] for name in odometry_path) == 0:
         raise AssertionError(f"a kernel of the odometry path was never launched: {counts}")
     if not ate <= jax_ate + ATE_MARGIN:

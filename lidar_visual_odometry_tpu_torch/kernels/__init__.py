@@ -11,6 +11,11 @@ One module per TPU kernel it replaces:
   ``block_topk`` (K5; K5p with ``packed=True``) and ``block_topk_coords`` (K8)
 * ``lk``     — ``ops/pallas_lk.py`` ``lk_level`` (K6)
 
+and one kernel that replaces no TPU kernel:
+
+* ``features`` — the lidar front end's greedy feature selection (K9), which
+  XLA compiled on the TPU and which ran as ~2,450 eager launches a frame
+
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version, a CUDA tensor launches the kernel (built from
 ``csrc/`` on first use) or raises. Each wrapper counts its kernel launches under its own name.
@@ -18,7 +23,7 @@ plain PyTorch version, a CUDA tensor launches the kernel (built from
 
 from __future__ import annotations
 
-from . import gn, lk, nn, segsum, topk
+from . import features, gn, lk, nn, segsum, topk
 
 # wrapper name → (module, attribute that counts its launches)
 _COUNTERS = {
@@ -33,6 +38,7 @@ _COUNTERS = {
     "ring_top2_pallas": (nn, "ring_top2_launches"),
     "ring_top2_coords": (nn, "ring_top2_coords_launches"),
     "lk_level": (lk, "launches"),
+    "feature_select": (features, "launches"),
 }
 
 

@@ -11,8 +11,9 @@
   per ring at a 0.2 m leaf.
 
 The greedy picks are sequential: each is one masked arg-max (or arg-min) over
-the (rings, W) plane, all rings at once. ``torch.argmax``/``argmin`` return the
-first extremum, as ``jnp`` does, so the same points are picked.
+the (rings, W) plane, all rings at once, the first extremum, as ``jnp`` picks
+it. ``kernels.features.select_features`` makes them: one kernel launch on the
+card (K9), the eager loop on the CPU, the same picks.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import features as K
 from .pointcloud import CompactScan, voxel_downsample_batched
 
 
@@ -93,14 +95,6 @@ def _suppression_reach(cs: CompactScan) -> tuple[torch.Tensor, torch.Tensor]:
     return reach_l, reach_r
 
 
-def _sector_bounds(count: torch.Tensor, n_sectors: int, j: int):
-    """Sector j of the span [5, count−6] (``:285-287``, integer division)."""
-    span = torch.clamp(count - 11, min=0)
-    sp = 5 + torch.div(span * j, n_sectors, rounding_mode="floor")
-    ep = 5 + torch.div(span * (j + 1), n_sectors, rounding_mode="floor") - 1
-    return sp, ep
-
-
 def extract_features(
     cs: CompactScan,
     *,
@@ -113,57 +107,14 @@ def extract_features(
     surf_leaf: float = 0.2,
     max_less_flat_per_ring: int = 512,
 ) -> ScanFeatures:
-    R, W = cs.valid.shape
+    R = cs.valid.shape[0]
     dev = cs.xyz.device
     curv, eligible = curvature(cs)
     reach_l, reach_r = _suppression_reach(cs)
-    idx = torch.arange(W, dtype=torch.int64, device=dev)[None, :]
-    neg = torch.full_like(curv, -1e30)
-    pos = torch.full_like(curv, 1e30)
-
-    def suppress(avail, pick, on):
-        """Clear availability in [pick − reach_l[pick], pick + reach_r[pick]]."""
-        p = pick[:, None]
-        rl = torch.gather(reach_l, 1, p)
-        rr = torch.gather(reach_r, 1, p)
-        hit = ((idx >= p - rl) & (idx <= p + rr)) | (idx == p)
-        return avail & ~(hit & on[:, None])
-
-    # Sequential over sectors (suppression crosses sector boundaries, like the
-    # reference's ring-global cloudNeighborPicked), fixed pick counts inside.
-    avail = eligible & cs.valid
-    corner_picks, corner_ok, flat_picks, flat_ok = [], [], [], []
-    corner_label = torch.zeros((R, W), dtype=torch.int8, device=dev)
-    for j in range(n_sectors):
-        sp, ep = _sector_bounds(cs.count, n_sectors, j)
-        sector_mask = (idx >= sp[:, None]) & (idx <= ep[:, None])
-        cps, coks = [], []
-        for _ in range(max_less_sharp):          # corners: descending curvature
-            score = torch.where(avail & sector_mask, curv, neg)
-            pick = torch.argmax(score, dim=1)
-            ok = torch.gather(score, 1, pick[:, None])[:, 0] > edge_gate
-            avail = suppress(avail, pick, ok)
-            cps.append(pick)
-            coks.append(ok)
-        cp, cok = torch.stack(cps, dim=1), torch.stack(coks, dim=1)   # (R, K)
-        corner_picks.append(cp)
-        corner_ok.append(cok)
-        corner_label.scatter_reduce_(1, cp, cok.to(torch.int8), reduce="amax")
-        fps, foks = [], []
-        for _ in range(max_flat):                # flats: ascending curvature
-            score = torch.where(avail & sector_mask, curv, pos)
-            pick = torch.argmin(score, dim=1)
-            ok = torch.gather(score, 1, pick[:, None])[:, 0] < surf_gate
-            avail = suppress(avail, pick, ok)
-            fps.append(pick)
-            foks.append(ok)
-        flat_picks.append(torch.stack(fps, dim=1))
-        flat_ok.append(torch.stack(foks, dim=1))
-
-    corner_picks = torch.stack(corner_picks, dim=1)   # (R, S, K)
-    corner_ok = torch.stack(corner_ok, dim=1)
-    flat_picks = torch.stack(flat_picks, dim=1)
-    flat_ok = torch.stack(flat_ok, dim=1)
+    corner_picks, corner_ok, flat_picks, flat_ok, corner_label = K.select_features(
+        curv, eligible & cs.valid, reach_l, reach_r, cs.count, n_sectors=n_sectors,
+        max_less_sharp=max_less_sharp, max_flat=max_flat, edge_gate=edge_gate,
+        surf_gate=surf_gate)
     ring_ids = torch.arange(R, dtype=torch.int32, device=dev)[:, None, None]
 
     def gather(picks, ok):

@@ -12,8 +12,10 @@ no JAX, so that on a machine with a card and without JAX it runs with
 import numpy as np
 import pytest
 import torch
+from _feature_cases import CRAFTED, SELECTION, crafted_scan, selection_inputs
 
 from lidar_visual_odometry_tpu_torch import kernels
+from lidar_visual_odometry_tpu_torch.kernels import features as kfeat
 from lidar_visual_odometry_tpu_torch.kernels import gn as kgn
 from lidar_visual_odometry_tpu_torch.kernels import lk as klk
 from lidar_visual_odometry_tpu_torch.kernels import nn as knn_k
@@ -805,6 +807,113 @@ def test_wrappers_reject_bad_input(dev):
         klk.lk_level(img, img, uv, uv, torch.ones(8, device=dev), win=13)
 
 
+# --------------------------------------------------------------------- K9
+
+_SELECT_KW = dict(n_sectors=6, max_less_sharp=20, max_flat=4, edge_gate=0.1, surf_gate=0.1)
+
+
+def _select_bit_for_bit(args, **kw):
+    """K9 in one launch against its plain version on the card: every output
+    the same bits, dtypes and shapes."""
+    kw = {**_SELECT_KW, **kw}
+    kernels.reset_launch_counts()
+    got = kfeat.select_features(*args, **kw)
+    assert kernels.launch_counts()["feature_select"] == 1
+    want = kfeat.select_features_plain(*args, **kw)
+    for name, g, w in zip(("corner_picks", "corner_ok", "flat_picks", "flat_ok",
+                           "corner_label"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"{name}: {int((g != w).sum())} elements differ"
+    return got
+
+
+def _selection_of(scan, dev):
+    """The selection's inputs from a compacted scan, computed on the card."""
+    from lidar_visual_odometry_tpu_torch.ops import features as F
+    from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
+
+    cs = pc.CompactScan(*_on(dev, scan["xyz"], scan["valid"], scan["rel_time"], scan["count"]))
+    curv, eligible = F.curvature(cs)
+    reach_l, reach_r = F._suppression_reach(cs)
+    return cs, (curv, eligible & cs.valid, reach_l, reach_r, cs.count)
+
+
+@pytest.mark.parametrize("W", [600, 1024, 2048, 5000])
+@pytest.mark.parametrize("case", SELECTION)
+def test_select_features_matches_plain_bit_for_bit(dev, gen, case, W):
+    """Direct inputs: ties, curvatures equal to the gates, NaN, ±inf, −0,
+    ±1e30 and beyond, reaches and counts out of range."""
+    _select_bit_for_bit(_on(dev, *selection_inputs(case, 64, W, gen)))
+
+
+def test_select_features_widest_ring_and_other_sizes(dev, gen):
+    """MAX_W (the shared-memory opt-in), one ring, and non-default counts."""
+    _select_bit_for_bit(_on(dev, *selection_inputs("random", 4, kfeat.MAX_W, gen)))
+    _select_bit_for_bit(_on(dev, *selection_inputs("ties_and_gate", 1, 300, gen)))
+    _select_bit_for_bit(_on(dev, *selection_inputs("nan_inf_zero", 64, 2048, gen)),
+                        n_sectors=4, max_less_sharp=7, max_flat=2, edge_gate=0.05,
+                        surf_gate=0.25)
+    _select_bit_for_bit(_on(dev, *selection_inputs("random", 64, 2048, gen)), n_sectors=33,
+                        max_less_sharp=40, max_flat=37)
+
+
+@pytest.mark.parametrize("case", CRAFTED)
+def test_select_features_crafted_rings_bit_for_bit(dev, case):
+    scan, kw = crafted_scan(case, 256)
+    _, args = _selection_of(scan, dev)
+    kw = {k: v for k, v in kw.items() if k in _SELECT_KW}
+    _select_bit_for_bit(args, **kw)
+
+
+def test_select_features_rendered_scan_one_launch_no_sync(dev):
+    """A rendered 64 × 2048 scan: the kernel's picks are the plain version's;
+    ``extract_features`` launches K9 once a call and never synchronises."""
+    from lidar_visual_odometry_tpu_torch.data import synthetic
+    from lidar_visual_odometry_tpu_torch.ops import features as F
+    from lidar_visual_odometry_tpu_torch.ops import pointcloud as pc
+
+    pts = synthetic.SyntheticSequence(n_frames=2, width=1800, noise=0.01).scan(1)
+    p, = _on(dev, pts)
+    cs = pc.build_compact_scan(p, torch.ones(len(pts), dtype=torch.bool, device=dev),
+                               n_scans=64, width=2048, min_range=0.1, max_range=120.0)
+    curv, eligible = F.curvature(cs)
+    reach_l, reach_r = F._suppression_reach(cs)
+    _, cok, _, fok, _ = _select_bit_for_bit((curv, eligible & cs.valid, reach_l, reach_r,
+                                             cs.count))
+    assert int(cok.sum()) > 1000 and int(fok.sum()) > 500
+    F.extract_features(cs)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            feats = F.extract_features(cs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launch_counts()["feature_select"] == 3
+    assert int(feats.less_sharp.mask.sum()) == int(cok.sum())
+
+
+def test_select_features_rejects_bad_input(dev, gen):
+    args = _on(dev, *selection_inputs("random", 8, 128, gen))
+    with pytest.raises(TypeError):
+        kfeat.select_features(args[0].double(), *args[1:], **_SELECT_KW)
+    with pytest.raises(TypeError):
+        kfeat.select_features(*args[:2], args[2].long(), *args[3:], **_SELECT_KW)
+    wide = torch.zeros((8, 256), device=dev)
+    with pytest.raises(ValueError):
+        kfeat.select_features(wide[:, ::2], *args[1:], **_SELECT_KW)
+    with pytest.raises(ValueError):
+        kfeat.select_features(args[0], args[1], args[2].T.contiguous().T, *args[3:], **_SELECT_KW)
+    big = _on(dev, *selection_inputs("random", 2, kfeat.MAX_W + 1, gen))
+    with pytest.raises(ValueError):
+        kfeat.select_features(*big, **_SELECT_KW)
+    with pytest.raises(ValueError):
+        kfeat.select_features(*args[:4], args[4][:4], **_SELECT_KW)
+    with pytest.raises(ValueError):
+        kfeat.select_features(*args, **{**_SELECT_KW, "max_flat": 0})
+
+
 def _direct_scene(n_frames=6):
     """The small direct-VO scene of tests/test_torch_direct.py: a 320 × 96
     camera moving 0.35 m and 0.004 rad a frame down the corridor, clouds
@@ -901,7 +1010,7 @@ def test_per_frame_drivers_launch_their_kernels(dev, driver):
     from lidar_visual_odometry_tpu_torch.models.pipeline import FullPipeline, OdometryPipeline
 
     scans, images = _corridor()
-    odometry = ("segment_sum_batched", "associate_kernel", "gn_inner_loop")
+    odometry = ("segment_sum_batched", "associate_kernel", "gn_inner_loop", "feature_select")
     out, counts = {}, None
     for d in (dev, "cpu"):
         kernels.reset_launch_counts()

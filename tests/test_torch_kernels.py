@@ -15,6 +15,7 @@ from lidar_visual_odometry_tpu.ops import knn as jknn
 from lidar_visual_odometry_tpu.ops import pallas_gn, pallas_nn, pallas_segsum
 from lidar_visual_odometry_tpu.ops import se3 as jse3
 from lidar_visual_odometry_tpu_torch import kernels
+from lidar_visual_odometry_tpu_torch.kernels import features as kfeat
 from lidar_visual_odometry_tpu_torch.kernels import gn as kgn
 from lidar_visual_odometry_tpu_torch.kernels import lk as klk
 from lidar_visual_odometry_tpu_torch.kernels import nn as knn_k
@@ -64,11 +65,16 @@ def test_cpu_tensors_never_launch():
     knn_k.ring_top2_coords(pts, blocks)
     ktop.block_topk(pts, pts, k=3, packed=True)
     ktop.block_topk_coords(pts, pts, k=3)
+    kfeat.select_features(torch.rand((2, 40)), torch.ones((2, 40), dtype=torch.bool),
+                          torch.zeros((2, 40), dtype=torch.int32),
+                          torch.zeros((2, 40), dtype=torch.int32),
+                          torch.full((2,), 40, dtype=torch.int32), n_sectors=6,
+                          max_less_sharp=20, max_flat=4, edge_gate=0.1, surf_gate=0.1)
     assert kernels.launch_counts() == {
         "segment_sum_batched": 0, "segment_sum": 0, "associate_kernel": 0,
         "gn_inner_loop": 0, "block_topk_windowed": 0, "block_topk": 0,
         "block_topk_packed": 0, "block_topk_coords": 0, "ring_top2_pallas": 0,
-        "ring_top2_coords": 0, "lk_level": 0,
+        "ring_top2_coords": 0, "lk_level": 0, "feature_select": 0,
     }
 
 
@@ -256,21 +262,35 @@ def _lk_launch(mod):
     return args
 
 
-@pytest.mark.parametrize("name", ["gn", "lk"])
+def _features_launch(mod):
+    R, W = 4, 64
+    args = [torch.zeros((R, W)), torch.ones((R, W), dtype=torch.bool),
+            torch.zeros((R, W), dtype=torch.int32), torch.zeros((R, W), dtype=torch.int32),
+            torch.full((R,), W, dtype=torch.int32)]
+    out = mod._launch(*args, n_sectors=6, max_less_sharp=20, max_flat=4, edge_gate=0.1,
+                      surf_gate=0.1)
+    assert [tuple(o.shape) for o in out] == [(R, 6, 20), (R, 6, 20), (R, 6, 4), (R, 6, 4), (R, W)]
+    assert [o.dtype for o in out] == [torch.int64, torch.bool, torch.int64, torch.bool, torch.int8]
+    return args
+
+
+@pytest.mark.parametrize("name", ["gn", "lk", "features"])
 def test_wrapper_binds_launcher_once(monkeypatch, name):
-    """K3's and K6's wrappers set the launcher's ctypes signature on their
-    first launch only, pass the stream handle from ``_build.stream`` and
-    build no ``torch.cuda.Stream``; K3 passes q and t as two pointers (no
+    """K3's, K6's and K9's wrappers set the launcher's ctypes signature on
+    their first launch only, pass the stream handle from ``_build.stream``
+    and build no ``torch.cuda.Stream``; K3 passes q and t as two pointers (no
     ``torch.cat``). A fake library stands in for the CUDA one."""
     from lidar_visual_odometry_tpu_torch.kernels import _build
 
-    mod, launch = {"gn": (kgn, _gn_launch), "lk": (klk, _lk_launch)}[name]
+    mod, launch = {"gn": (kgn, _gn_launch), "lk": (klk, _lk_launch),
+                   "features": (kfeat, _features_launch)}[name]
     fn = _FakeLauncher()
     loads, streams = [], []
 
     def load(lib):
         loads.append(lib)
-        return type("Lib", (), {"lvo_gn_inner_loop": fn, "lvo_lk_level": fn})()
+        return type("Lib", (), {"lvo_gn_inner_loop": fn, "lvo_lk_level": fn,
+                                "lvo_select_features": fn})()
 
     def refuse(*args, **kwargs):
         raise AssertionError("the wrapper built a torch.cuda stream or concatenated")

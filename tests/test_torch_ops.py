@@ -16,6 +16,7 @@ from lidar_visual_odometry_tpu.ops import knn as jknn
 from lidar_visual_odometry_tpu.ops import lidar_factors as jlf
 from lidar_visual_odometry_tpu.ops import pointcloud as jpc
 from lidar_visual_odometry_tpu.ops import se3 as jse3
+from lidar_visual_odometry_tpu_torch.kernels import features as kfeat
 from lidar_visual_odometry_tpu_torch.ops import features as F
 from lidar_visual_odometry_tpu_torch.ops import gn, knn, se3
 from lidar_visual_odometry_tpu_torch.ops import lidar_factors as lf
@@ -154,7 +155,7 @@ def test_curvature_and_reach_match_jax(polar_cs):
     for a, b in zip(F._suppression_reach(tcs), jF._suppression_reach(jcs)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     for j in range(6):
-        for a, b in zip(F._sector_bounds(tcs.count, 6, j), jF._sector_bounds(jcs.count, 6, j)):
+        for a, b in zip(kfeat.sector_bounds(tcs.count, 6, j), jF._sector_bounds(jcs.count, 6, j)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 

@@ -80,10 +80,10 @@ def _device_us(evt) -> float:
 
 
 # the port's kernels by their CUDA names: K1's batched and flat forms, K2, K3,
-# K4's range pre-pass and search, K5 (with K8 and K5p), K6 and K7
+# K4's range pre-pass and search, K5 (with K8 and K5p), K6, K7 and K9
 PORT_KERNELS = ("segsum_rows_kernel", "segsum_flat_kernel", "assoc_kernel", "gn_kernel",
                 "topk_window_ranges_kernel", "topk_windowed_kernel", "topk_kernel",
-                "lk_level_kernel", "ring_top2_kernel")
+                "lk_level_kernel", "ring_top2_kernel", "select_features_kernel")
 
 
 def _kernel_name(key: str, name: str) -> str:
